@@ -1,0 +1,269 @@
+"""Weight bridge between the JAX package's variable trees and the port.
+
+``from_jax_variables(model, {"params": ..., "batch_stats": ...})`` turns
+an ``egot2x`` variable tree (numpy leaves) into a ``state_dict`` for the
+port module that mirrors it; ``to_jax_variables`` goes back. The layouts
+differ as follows:
+
+  * Dense kernels are (in, out), torch Linear weights (out, in);
+  * conv kernels are HWIO / THWIO / (K, I, O) (the depthwise conv1d is
+    (K, 1, C)), torch weights are OIHW / OITHW / (O, I, K);
+  * Flax MHA has separate q/k/v Dense layers, packed here into torch's
+    ``in_proj_weight`` / ``in_proj_bias``;
+  * BatchNorm keeps ``mean``/``var`` in ``batch_stats``; gLN's gamma/beta
+    are (C,) in JAX and (1, C, 1) here.
+
+The map is written module by module: each entry pairs a port module path
+with a JAX module path, and the module's type says which leaves it has.
+Both directions check that every leaf on either side was used, so a name
+that drifts fails loudly.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, List, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from egot2x_torch.nn.common import MultiHeadAttention, TransformerEncoder
+from egot2x_torch.nn.resnet2d import ResNet2D
+from egot2x_torch.nn.talknet import GlobalLayerNorm, TalkNetModel
+from egot2x_torch.translate.egot2s_hhi import _MFTransformerCore
+
+# (torch key, [(collection, jax path)], layout)
+Rule = Tuple[str, List[Tuple[str, Tuple[str, ...]]], str]
+
+_TO_TORCH = {
+    "id": lambda a: a[0],
+    "linear": lambda a: a[0].T,
+    "conv1d": lambda a: a[0].transpose(2, 1, 0),
+    "conv2d": lambda a: a[0].transpose(3, 2, 0, 1),
+    "conv3d": lambda a: a[0].transpose(4, 3, 0, 1, 2),
+    "gln": lambda a: a[0].reshape(1, -1, 1),
+    "qkv_w": lambda a: np.concatenate([w.T for w in a], axis=0),
+    "qkv_b": lambda a: np.concatenate(a, axis=0),
+}
+_TO_JAX = {
+    "id": lambda t: [t],
+    "linear": lambda t: [t.T],
+    "conv1d": lambda t: [t.transpose(2, 1, 0)],
+    "conv2d": lambda t: [t.transpose(2, 3, 1, 0)],
+    "conv3d": lambda t: [t.transpose(2, 3, 4, 1, 0)],
+    "gln": lambda t: [t.reshape(-1)],
+    "qkv_w": lambda t: [w.T for w in np.split(t, 3, axis=0)],
+    "qkv_b": lambda t: np.split(t, 3, axis=0),
+}
+
+
+def _p(path: str) -> Tuple[str, ...]:
+    return tuple(p for p in path.split("/") if p)
+
+
+def _leaf_rules(module: nn.Module, t: str, j: str) -> List[Rule]:
+    """Leaf rules of one port module ``t`` mirroring JAX module ``j``."""
+    t = t + "." if t else ""
+    prm = lambda leaf: ("params", _p(f"{j}/{leaf}"))
+    if isinstance(module, (nn.Conv1d, nn.Conv2d, nn.Conv3d)):
+        layout = {3: "conv1d", 4: "conv2d", 5: "conv3d"}[module.weight.dim()]
+        rules = [(t + "weight", [prm("kernel")], layout)]
+        if module.bias is not None:
+            rules.append((t + "bias", [prm("bias")], "id"))
+        return rules
+    if isinstance(module, nn.modules.batchnorm._BatchNorm):
+        return [(t + "weight", [prm("scale")], "id"),
+                (t + "bias", [prm("bias")], "id"),
+                (t + "running_mean", [("batch_stats", _p(f"{j}/mean"))], "id"),
+                (t + "running_var", [("batch_stats", _p(f"{j}/var"))], "id")]
+    if isinstance(module, nn.Linear):
+        return [(t + "weight", [prm("kernel")], "linear"),
+                (t + "bias", [prm("bias")], "id")]
+    if isinstance(module, nn.LayerNorm):
+        return [(t + "weight", [prm("scale")], "id"),
+                (t + "bias", [prm("bias")], "id")]
+    if isinstance(module, MultiHeadAttention):
+        qkv = ("q_proj", "k_proj", "v_proj")
+        return [(t + "in_proj_weight", [prm(f"{n}/kernel") for n in qkv],
+                 "qkv_w"),
+                (t + "in_proj_bias", [prm(f"{n}/bias") for n in qkv], "qkv_b"),
+                *_leaf_rules(module.out_proj, t + "out_proj", f"{j}/out_proj")]
+    if isinstance(module, GlobalLayerNorm):
+        return [(t + "gamma", [prm("gamma")], "gln"),
+                (t + "beta", [prm("beta")], "gln")]
+    if isinstance(module, nn.PReLU):  # its alpha lives on the JAX block
+        return [(t + "weight", [prm("prelu_alpha")], "id")]
+    raise TypeError(f"no bridge rule for {type(module).__name__} at {t!r}")
+
+
+def _resnet18(t: str, j: str) -> Iterator[Tuple[str, str]]:
+    yield from ((f"{t}conv1", f"{j}/conv1"), (f"{t}bn1", f"{j}/bn1"),
+                (f"{t}fc", f"{j}/fc"), (f"{t}fc2", f"{j}/fc2"))
+    for stage in range(1, 5):
+        for b in range(2):
+            tp, jp = f"{t}layer{stage}.{b}", f"{j}/layer{stage}_{b}"
+            for leaf in ("conv1", "bn1", "conv2", "bn2"):
+                yield f"{tp}.{leaf}", f"{jp}/{leaf}"
+            yield f"{tp}.downsample.0", f"{jp}/downsample_conv"
+            yield f"{tp}.downsample.1", f"{jp}/downsample_bn"
+
+
+def _attention_layer(t: str, j: str) -> Iterator[Tuple[str, str]]:
+    for leaf in ("self_attn", "linear1", "linear2", "norm1", "norm2"):
+        yield f"{t}.{leaf}", f"{j}/{leaf}"
+
+
+def _encoder(t: str, j: str, num_layers: int) -> Iterator[Tuple[str, str]]:
+    for i in range(num_layers):
+        yield from _attention_layer(f"{t}layers.{i}", f"{j}/layers_{i}")
+
+
+def _talknet(t: str, j: str) -> Iterator[Tuple[str, str]]:
+    vf, jvf = f"{t}visualFrontend", f"{j}/visual_frontend"
+    yield f"{vf}.frontend3D.0", f"{jvf}/frontend3d_conv"
+    yield f"{vf}.frontend3D.1", f"{jvf}/frontend3d_bn"
+    for i in range(1, 5):
+        for leaf in ("conv1a", "bn1a", "conv2a", "downsample", "outbna",
+                     "conv1b", "bn1b", "conv2b", "outbnb"):
+            yield f"{vf}.resnet.layer{i}.{leaf}", f"{jvf}/layer{i}/{leaf}"
+    for i in range(5):
+        tp, jp = f"{t}visualTCN.net.{i}.net", f"{j}/visual_tcn/block{i}"
+        for k, leaf in ((1, "/bn"), (2, "/depthwise"), (3, ""), (4, "/gln"),
+                        (5, "/pointwise")):
+            yield f"{tp}.{k}", jp + leaf
+    for k, leaf in ((0, "conv5"), (1, "bn"), (3, "conv1")):
+        yield f"{t}visualConv1D.net.{k}", f"{j}/visual_conv1d/{leaf}"
+    ae, jae = f"{t}audioEncoder", f"{j}/audio_encoder"
+    yield f"{ae}.conv1", f"{jae}/conv1"
+    yield f"{ae}.bn1", f"{jae}/bn1"
+    for layer, blocks in enumerate((3, 4, 6, 3), start=1):
+        for b in range(blocks):
+            tp, jp = f"{ae}.layer{layer}.{b}", f"{jae}/layer{layer}_{b}"
+            for leaf in ("conv1", "bn1", "conv2", "bn2"):
+                yield f"{tp}.{leaf}", f"{jp}/{leaf}"
+            yield f"{tp}.se.fc.0", f"{jp}/se_fc0"
+            yield f"{tp}.se.fc.2", f"{jp}/se_fc1"
+            yield f"{tp}.downsample.0", f"{jp}/downsample_conv"
+            yield f"{tp}.downsample.1", f"{jp}/downsample_bn"
+    for tn, jn in (("crossA2V", "cross_a2v"), ("crossV2A", "cross_v2a"),
+                   ("selfAV", "self_av")):
+        yield from _attention_layer(f"{t}{tn}", f"{j}/{jn}")
+
+
+def _translator(model: _MFTransformerCore) -> Iterator[Tuple[str, str]]:
+    yield from _resnet18("lam_model.base_model.", "lam_model/trunk/base_model")
+    yield from _resnet18("ttm_model.video_encoder.",
+                         "ttm_model/trunk/video_encoder")
+    if hasattr(model, "asd_model"):
+        yield from _talknet("asd_model.", "asd_model")
+    for s in model.streams:
+        yield f"proj_{s}", f"core/proj_{s}"
+    yield "ln", "core/ln"
+    yield from _encoder("transformer_encoder.", "core/transformer_encoder",
+                        len(model.transformer_encoder.layers))
+    yield "linear_head.0", "head_ln"
+    yield "linear_head.1", "head_fc"
+
+
+def bridge_rules(model: nn.Module) -> List[Rule]:
+    """Every leaf rule between ``model`` and the JAX tree it mirrors."""
+    if isinstance(model, _MFTransformerCore):
+        pairs = _translator(model)
+        extra = [("task_embed", [("params", ("core", "task_embed"))], "id")]
+    elif isinstance(model, ResNet2D):
+        pairs, extra = _resnet18("", ""), []
+    elif isinstance(model, TalkNetModel):
+        pairs, extra = _talknet("", ""), []
+    elif isinstance(model, TransformerEncoder):
+        pairs, extra = _encoder("", "", len(model.layers)), []
+    else:
+        raise TypeError(f"no bridge for {type(model).__name__}")
+    modules = dict(model.named_modules())
+    rules = list(extra)
+    for t, j in pairs:
+        if t in modules:  # a block without a projection has no downsample
+            rules += _leaf_rules(modules[t], t, j)
+    return rules
+
+
+def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):  # dict or FrozenDict
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def from_jax_variables(model: nn.Module, variables) -> Dict[str, torch.Tensor]:
+    """JAX ``{"params", "batch_stats"}`` (numpy or array leaves) -> a
+    state_dict for ``model`` (every key but BN's num_batches_tracked)."""
+    flat = {(coll,) + path: leaf for coll in ("params", "batch_stats")
+            for path, leaf in _flatten(variables.get(coll, {})).items()}
+    state, used = {}, set()
+    for key, sources, layout in bridge_rules(model):
+        srcs = [(coll,) + path for coll, path in sources]
+        missing = [s for s in srcs if s not in flat]
+        if missing:
+            raise KeyError(f"{key}: JAX leaves {missing} not found")
+        used.update(srcs)
+        arr = np.ascontiguousarray(_TO_TORCH[layout]([flat[s] for s in srcs]))
+        state[key] = torch.from_numpy(arr.astype(np.float32))
+    unused = sorted("/".join(k) for k in set(flat) - used)
+    if unused:
+        raise KeyError(f"JAX leaves with no port counterpart: {unused}")
+    return state
+
+
+def load_jax_variables(model: nn.Module, variables) -> nn.Module:
+    """Load a JAX variable tree into ``model`` in place; every parameter
+    and statistic must be covered."""
+    state = from_jax_variables(model, variables)
+    missing, unexpected = model.load_state_dict(state, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise KeyError(f"bridge mismatch: missing {missing}, "
+                       f"unexpected {unexpected}")
+    return model
+
+
+def to_jax_variables(model: nn.Module) -> Dict[str, dict]:
+    """The port's weights as a JAX variable tree of numpy leaves."""
+    state = {k: v.detach().float().cpu().numpy()
+             for k, v in model.state_dict().items()}
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for key, sources, layout in bridge_rules(model):
+        for (coll, path), leaf in zip(sources, _TO_JAX[layout](state[key])):
+            node = out[coll]
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node[path[-1]] = np.ascontiguousarray(leaf)
+    return out
+
+
+def random_jax_variables(model: nn.Module, seed: int) -> Dict[str, dict]:
+    """A JAX-layout variable tree for ``model`` drawn from a numpy seed:
+    kernels ~ N(0, 1/fan_in), small biases, BN/LN/gLN near identity,
+    running statistics near (0, 1). For runs that need weights but no
+    checkpoint."""
+    rng = np.random.default_rng(seed)
+    template = _flatten(to_jax_variables(model))
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for path in sorted(template):
+        shape, leaf = template[path].shape, path[-1]
+        if leaf == "kernel":
+            v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
+        elif leaf in ("scale", "gamma", "var"):
+            v = rng.uniform(0.8, 1.2, shape)
+        elif leaf == "prelu_alpha":
+            v = np.full(shape, 0.25)
+        elif leaf == "task_embed":
+            v = rng.standard_normal(shape)
+        else:  # bias, beta, mean
+            v = rng.standard_normal(shape) * 0.05
+        node = out[path[0]]
+        for p in path[1:-1]:
+            node = node.setdefault(p, {})
+        node[leaf] = v.astype(np.float32)
+    return out

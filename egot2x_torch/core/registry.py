@@ -1,0 +1,66 @@
+"""Model registry and ``build_model``, the port's entry point.
+
+The port's own counterpart of ``egot2x/core/registry.py``. Models run on
+the CUDA card unless the caller passes ``device="cpu"`` (as the tests do);
+with no card and no explicit device, ``build_model`` raises rather than
+carry on on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+
+class Registry:
+    """Name -> callable mapping with decorator-style registration."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._objs: Dict[str, Any] = {}
+
+    def register(self, name: Optional[str] = None):
+        def add(obj):
+            key = name or obj.__name__
+            if key in self._objs:
+                raise KeyError(f"{key!r} already registered in {self.name}")
+            self._objs[key] = obj
+            return obj
+        return add
+
+    def get(self, key: str) -> Any:
+        if key not in self._objs:
+            known = ", ".join(sorted(self._objs))
+            raise KeyError(f"{key!r} not found in registry {self.name}. "
+                           f"Known: {known}")
+        return self._objs[key]
+
+
+MODEL_REGISTRY = Registry("MODEL")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given, else the current CUDA card; raises when there
+    is no card and no device was asked for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: egot2x_torch runs on the card; "
+                           "pass device='cpu' to run the plain path")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def build_model(name: str, device=None, **kwargs) -> torch.nn.Module:
+    """Construct a registered model in eval mode on ``device``, its 4-D
+    weights in ``torch.channels_last`` (the layout the stem kernel's NHWC
+    output feeds). Weights are the module defaults: load real ones with
+    :func:`egot2x_torch.core.bridge.load_jax_variables` or
+    ``load_state_dict``."""
+    import egot2x_torch.translate.egot2s_hhi  # noqa: F401  (registers)
+
+    model = MODEL_REGISTRY.get(name)(**kwargs).to(resolve_device(device))
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.to(memory_format=torch.channels_last)
+    return model.eval()

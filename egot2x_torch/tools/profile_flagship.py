@@ -1,0 +1,115 @@
+"""Where the flagship's time goes on the card.
+
+One request of the released flagship (``TaskFusionMFTransformer3Task``,
+hidden 128, 1 layer, 4 heads; 16 clips x 30 frames, ResNet-18 at 224^2,
+TalkNet at 112^2; random weights from a numpy seed through the weight
+bridge), f32, timed with the host clock around synchronized forwards and
+traced with ``torch.profiler``, twice: with TF32 off (full f32, the
+numbers ``chip_smoke.py`` reports) and with TF32 on for cuDNN and matmuls
+(torch's default for convolutions). Prints one JSON line per setting: ms
+per request, clips/s, the device's busy share of the wall time, and the
+kernels ranked by device time.
+
+    python -m egot2x_torch.tools.profile_flagship
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from egot2x_torch.core import bridge
+from egot2x_torch.core.registry import build_model
+from egot2x_torch.data.lam import normalize_frames
+
+B, T = 16, 30
+FORWARDS = 3
+
+
+def _inputs(seed=1):
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(0, 256, (B, T, 224, 224, 3), dtype=np.uint8)
+    grey = rng.integers(0, 256, (B, T, 112, 112), dtype=np.uint8)
+    mfcc = rng.standard_normal((B, 4 * T, 13), dtype=np.float32)
+    return [torch.from_numpy(a).cuda() for a in
+            (normalize_frames(rgb), grey.astype(np.float32))], \
+        torch.from_numpy(mfcc).cuda()
+
+
+def _category(name: str) -> str:
+    n = name.lower()
+    if "stem_pool_kernel" in n:
+        return "stem kernel (ours)"
+    if "conv" in n or "xmma" in n or "implicit" in n or "winograd" in n:
+        return "cuDNN convolution"
+    if "gemm" in n or "cutlass" in n or "matmul" in n:
+        return "matmul"
+    if "batch_norm" in n or "bn_" in n:
+        return "batch norm"
+    if "reduce" in n or "mean" in n:
+        return "reduction"
+    return "elementwise and other"
+
+
+def run(model, inputs, mfcc, tf32: bool):
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    with torch.no_grad():
+        model(*inputs, None, mfcc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FORWARDS):
+            model(*inputs, None, mfcc)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / FORWARDS * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(FORWARDS):
+                model(*inputs, None, mfcc)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) / FORWARDS * 1e3
+    kernels, cats = {}, defaultdict(float)
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = us / 1e3 / FORWARDS
+        kernels[ev.key] = (ms, ev.count // FORWARDS)
+        cats[_category(ev.key)] += ms
+    busy = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return dict(
+        tf32=tf32, ms_per_request=wall_ms, clips_per_s=B * 1e3 / wall_ms,
+        traced_ms_per_request=traced_ms, device_busy_ms=busy,
+        device_busy_share=busy / traced_ms if traced_ms else None,
+        by_category={k: v for k, v in sorted(cats.items(),
+                                             key=lambda kv: -kv[1])},
+        top_kernels=[dict(name=k[:90], ms=ms, launches=n)
+                     for k, (ms, n) in top])
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    model = build_model("TaskFusionMFTransformer3Task", hidden_dim=128,
+                        num_heads=4, num_layers=1)
+    bridge.load_jax_variables(model, bridge.random_jax_variables(model, 0))
+    inputs, mfcc = _inputs()
+    for tf32 in (False, True):
+        print(json.dumps(dict(card=card, clips=B, frames=T,
+                              **run(model, inputs, mfcc, tf32))), flush=True)
+
+
+if __name__ == "__main__":
+    main()

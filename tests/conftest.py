@@ -30,3 +30,5 @@ def rng():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running tests (multi-process subprocess runs)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")
