@@ -11,9 +11,10 @@
 // input's dtype; f32 or bf16 in, f32 accumulation, f32 weights.
 //
 // What bounds it on an H100: at the bench batch (4800 frames of 224^2)
-// one 2D trunk is 1.13 TFLOP against 6.7 GB of f32 input and output, so
-// it is compute-bound: ~16.9 ms at 67 TFLOP/s on the f32 CUDA cores. The
-// 3D stem is 0.47 TFLOP and 1.2 GB (~7.0 ms). The design spends nothing
+// one 2D trunk is 1.12 TFLOP (in-image taps; zero-pad taps need no
+// product) against 6.7 GB of f32 input and output, so it is
+// compute-bound: ~16.7 ms at 67 TFLOP/s on the f32 CUDA cores. The 3D
+// stem is 0.44 TFLOP and 1.2 GB (~6.6 ms). The design spends nothing
 // on bytes it does not have to move: the pre-pool conv map (4x the bytes
 // of the pooled output) never leaves shared memory, and each input pixel
 // is read from device memory once per tile (plus a small halo). The FMAs

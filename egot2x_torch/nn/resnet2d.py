@@ -18,11 +18,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from egot2x_torch.data.lam import IMAGENET_MEAN, IMAGENET_STD
 from egot2x_torch.ops.stem import fold_bn, stem_pool_2d
-
-# ImageNet statistics of the host-side ToTensor + Normalize
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def normalize_u8_frames(x: torch.Tensor) -> torch.Tensor:
@@ -30,8 +27,8 @@ def normalize_u8_frames(x: torch.Tensor) -> torch.Tensor:
     f32; float input is returned as it is (already normalized)."""
     if x.is_floating_point():
         return x
-    mean = torch.tensor(IMAGENET_MEAN, device=x.device)
-    std = torch.tensor(IMAGENET_STD, device=x.device)
+    mean = torch.from_numpy(IMAGENET_MEAN).to(x.device)
+    std = torch.from_numpy(IMAGENET_STD).to(x.device)
     return (x.float() / 255.0 - mean) / std
 
 

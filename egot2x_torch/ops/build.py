@@ -18,7 +18,6 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "egot2x_torch"
@@ -49,35 +48,28 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
-def build(names: Sequence[str]) -> Dict[str, Built]:
-    """Compile every named source that has no current library, one nvcc
-    process per source, all started together."""
+def build(name: str) -> Built:
+    """Compile ``csrc/<name>.cu`` unless its current library exists."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    started, done = {}, {}
-    for name in names:
-        target = _target(name)
-        if target.exists():
-            log = target.with_suffix(".log")
-            done[name] = Built(name, target, 0.0,
-                               log.read_text() if log.exists() else "")
-            continue
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        started[name] = (proc, tmp, target, time.perf_counter())
-    for name, (proc, tmp, target, t0) in started.items():
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-        target.with_suffix(".log").write_text(log)
-        os.replace(tmp, target)  # atomic: concurrent builds agree
-        done[name] = Built(name, target, seconds, log)
-    return done
+    target = _target(name)
+    log_path = target.with_suffix(".log")
+    if target.exists():
+        return Built(name, target, 0.0,
+                     log_path.read_text() if log_path.exists() else "")
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    log_path.write_text(proc.stdout)
+    os.replace(tmp, target)  # atomic: concurrent builds agree
+    return Built(name, target, seconds, proc.stdout)
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    return ctypes.CDLL(str(build([name])[name].path))
+    return ctypes.CDLL(str(build(name).path))

@@ -14,8 +14,8 @@ package and the card holds the kernel against.
   (B*T, H/4, W/4, 64) NHWC.
 
 What bounds the kernel on an H100, and what its design does about it, is
-in the kernel's source note. In short: it is compute-bound (1.13 TFLOP per
-2D trunk at 4800 frames of 224^2, ~16.9 ms at the 67 TFLOP/s of the f32
+in the kernel's source note. In short: it is compute-bound (1.12 TFLOP per
+2D trunk at 4800 frames of 224^2, ~16.7 ms at the 67 TFLOP/s of the f32
 CUDA cores), so the kernel keeps the pre-pool conv map in shared memory
 and spends its device-memory traffic on the input once and the pooled
 output once.

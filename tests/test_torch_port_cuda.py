@@ -2,9 +2,12 @@
 
 Marked ``cuda``; each test skips when the process sees no CUDA card. This
 file imports neither JAX nor the JAX package, so on a machine without JAX
-it runs on its own (tests/conftest.py imports JAX, hence ``--noconftest``):
+it runs on its own. tests/conftest.py imports JAX, hence ``--noconftest``;
+that skips the conftest's marker registration, so ``-o`` registers
+``cuda`` on the command line:
 
-    python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_port_cuda.py
+    python -m pytest --noconftest -o "markers=cuda: needs a CUDA card" \
+        --strict-markers -p no:cacheprovider -q tests/test_torch_port_cuda.py
 
 Tolerances: f32 kernel vs the plain f32 version (cuDNN with TF32 off),
 rtol = atol = 1e-4 as tests/test_pallas_stem.py holds the Pallas kernel;
