@@ -2,8 +2,11 @@
 
 ``from_jax_variables(model, {"params": ..., "batch_stats": ...})`` turns
 an ``egot2x`` variable tree (numpy leaves) into a ``state_dict`` for the
-port module that mirrors it; ``to_jax_variables`` goes back. The layouts
-differ as follows:
+port module that mirrors it; ``to_jax_variables`` goes back. A quant model
+also carries the ``quant`` collection: ``act_max`` of each int8 conv,
+``stem_act_max`` of each stem and ``out_act_max`` of each block or AVSR
+layer that emits int8, as scalar buffers of the module that owns them.
+The layouts differ as follows:
 
   * Dense kernels are (in, out), torch Linear weights (out, in);
   * conv kernels are HWIO / THWIO / (K, I, O) (the depthwise conv1d is
@@ -28,8 +31,10 @@ import torch
 from torch import nn
 
 from egot2x_torch.nn.common import MultiHeadAttention, TransformerEncoder
-from egot2x_torch.nn.resnet2d import ResNet2D
-from egot2x_torch.nn.talknet import GlobalLayerNorm, TalkNetModel
+from egot2x_torch.nn.quant import SCALE_BUFFERS
+from egot2x_torch.nn.resnet2d import BasicBlock2D, ResNet2D
+from egot2x_torch.nn.talknet import (AVSRResNetLayer, GlobalLayerNorm,
+                                     TalkNetModel, VisualFrontend)
 from egot2x_torch.translate.egot2s_hhi import _MFTransformerCore
 
 # (torch key, [(collection, jax path)], layout)
@@ -93,15 +98,28 @@ def _leaf_rules(module: nn.Module, t: str, j: str) -> List[Rule]:
                 (t + "beta", [prm("beta")], "gln")]
     if isinstance(module, nn.PReLU):  # its alpha lives on the JAX block
         return [(t + "weight", [prm("prelu_alpha")], "id")]
+    if isinstance(module, (ResNet2D, BasicBlock2D, VisualFrontend,
+                           AVSRResNetLayer)):
+        return []  # only int8 scales of its own (_scale_rules)
     raise TypeError(f"no bridge rule for {type(module).__name__} at {t!r}")
 
 
+def _scale_rules(module: nn.Module, t: str, j: str) -> List[Rule]:
+    """Rules of the int8 scales ``module`` owns itself (``quant``)."""
+    t = t + "." if t else ""
+    own = dict(module.named_buffers(recurse=False))
+    return [(t + name, [("quant", _p(f"{j}/{name}"))], "id")
+            for name in SCALE_BUFFERS if name in own]
+
+
 def _resnet18(t: str, j: str) -> Iterator[Tuple[str, str]]:
-    yield from ((f"{t}conv1", f"{j}/conv1"), (f"{t}bn1", f"{j}/bn1"),
-                (f"{t}fc", f"{j}/fc"), (f"{t}fc2", f"{j}/fc2"))
+    yield from ((t.rstrip("."), j), (f"{t}conv1", f"{j}/conv1"),
+                (f"{t}bn1", f"{j}/bn1"), (f"{t}fc", f"{j}/fc"),
+                (f"{t}fc2", f"{j}/fc2"))
     for stage in range(1, 5):
         for b in range(2):
             tp, jp = f"{t}layer{stage}.{b}", f"{j}/layer{stage}_{b}"
+            yield tp, jp
             for leaf in ("conv1", "bn1", "conv2", "bn2"):
                 yield f"{tp}.{leaf}", f"{jp}/{leaf}"
             yield f"{tp}.downsample.0", f"{jp}/downsample_conv"
@@ -120,9 +138,11 @@ def _encoder(t: str, j: str, num_layers: int) -> Iterator[Tuple[str, str]]:
 
 def _talknet(t: str, j: str) -> Iterator[Tuple[str, str]]:
     vf, jvf = f"{t}visualFrontend", f"{j}/visual_frontend"
+    yield vf, jvf
     yield f"{vf}.frontend3D.0", f"{jvf}/frontend3d_conv"
     yield f"{vf}.frontend3D.1", f"{jvf}/frontend3d_bn"
     for i in range(1, 5):
+        yield f"{vf}.resnet.layer{i}", f"{jvf}/layer{i}"
         for leaf in ("conv1a", "bn1a", "conv2a", "downsample", "outbna",
                      "conv1b", "bn1b", "conv2b", "outbnb"):
             yield f"{vf}.resnet.layer{i}.{leaf}", f"{jvf}/layer{i}/{leaf}"
@@ -183,6 +203,7 @@ def bridge_rules(model: nn.Module) -> List[Rule]:
     for t, j in pairs:
         if t in modules:  # a block without a projection has no downsample
             rules += _leaf_rules(modules[t], t, j)
+            rules += _scale_rules(modules[t], t, j)
     return rules
 
 
@@ -197,9 +218,9 @@ def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
 
 
 def from_jax_variables(model: nn.Module, variables) -> Dict[str, torch.Tensor]:
-    """JAX ``{"params", "batch_stats"}`` (numpy or array leaves) -> a
-    state_dict for ``model`` (every key but BN's num_batches_tracked)."""
-    flat = {(coll,) + path: leaf for coll in ("params", "batch_stats")
+    """JAX ``{"params", "batch_stats"[, "quant"]}`` (numpy or array leaves)
+    -> a state_dict for ``model`` (every key but BN's num_batches_tracked)."""
+    flat = {(coll,) + path: leaf for coll in ("params", "batch_stats", "quant")
             for path, leaf in _flatten(variables.get(coll, {})).items()}
     state, used = {}, set()
     for key, sources, layout in bridge_rules(model):
@@ -208,7 +229,7 @@ def from_jax_variables(model: nn.Module, variables) -> Dict[str, torch.Tensor]:
         if missing:
             raise KeyError(f"{key}: JAX leaves {missing} not found")
         used.update(srcs)
-        arr = np.ascontiguousarray(_TO_TORCH[layout]([flat[s] for s in srcs]))
+        arr = np.array(_TO_TORCH[layout]([flat[s] for s in srcs]), order="C")
         state[key] = torch.from_numpy(arr.astype(np.float32))
     unused = sorted("/".join(k) for k in set(flat) - used)
     if unused:
@@ -235,24 +256,28 @@ def to_jax_variables(model: nn.Module) -> Dict[str, dict]:
     out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     for key, sources, layout in bridge_rules(model):
         for (coll, path), leaf in zip(sources, _TO_JAX[layout](state[key])):
-            node = out[coll]
+            node = out.setdefault(coll, {})
             for p in path[:-1]:
                 node = node.setdefault(p, {})
-            node[path[-1]] = np.ascontiguousarray(leaf)
+            node[path[-1]] = np.array(leaf, order="C")
     return out
 
 
 def random_jax_variables(model: nn.Module, seed: int) -> Dict[str, dict]:
     """A JAX-layout variable tree for ``model`` drawn from a numpy seed:
     kernels ~ N(0, 1/fan_in), small biases, BN/LN/gLN near identity,
-    running statistics near (0, 1). For runs that need weights but no
-    checkpoint."""
+    running statistics near (0, 1); int8 scales 0, uncalibrated (they
+    come from calibration only, and draw nothing from the seed, so a quant
+    model gets the float model's weights). For runs that need weights but
+    no checkpoint."""
     rng = np.random.default_rng(seed)
     template = _flatten(to_jax_variables(model))
     out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     for path in sorted(template):
         shape, leaf = template[path].shape, path[-1]
-        if leaf == "kernel":
+        if leaf in SCALE_BUFFERS:
+            v = np.zeros(shape)
+        elif leaf == "kernel":
             v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
         elif leaf in ("scale", "gamma", "var"):
             v = rng.uniform(0.8, 1.2, shape)
@@ -262,7 +287,7 @@ def random_jax_variables(model: nn.Module, seed: int) -> Dict[str, dict]:
             v = rng.standard_normal(shape)
         else:  # bias, beta, mean
             v = rng.standard_normal(shape) * 0.05
-        node = out[path[0]]
+        node = out.setdefault(path[0], {})
         for p in path[1:-1]:
             node = node.setdefault(p, {})
         node[leaf] = v.astype(np.float32)

@@ -54,9 +54,13 @@ def resolve_device(device=None) -> torch.device:
 def build_model(name: str, device=None, **kwargs) -> torch.nn.Module:
     """Construct a registered model in eval mode on ``device``, its 4-D
     weights in ``torch.channels_last`` (the layout the stem kernel's NHWC
-    output feeds). Weights are the module defaults: load real ones with
-    :func:`egot2x_torch.core.bridge.load_jax_variables` or
-    ``load_state_dict``."""
+    output feeds). ``kwargs`` go to the model: widths, ``dtype`` (the
+    compute dtype; parameters stay f32) and, for the 3-task translator,
+    ``quant`` and ``fuse_stems``. Weights are the module defaults: load
+    real ones with :func:`egot2x_torch.core.bridge.load_jax_variables` or
+    ``load_state_dict``; a ``quant`` model then needs
+    :func:`egot2x_torch.nn.quant.calibrate` (or calibrated scales in what
+    it loads) before int8 inference, and raises without them."""
     import egot2x_torch.translate.egot2s_hhi  # noqa: F401  (registers)
 
     model = MODEL_REGISTRY.get(name)(**kwargs).to(resolve_device(device))

@@ -9,6 +9,7 @@ attribute is ``video_encoder``, as in the reference.
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from egot2x_torch.nn.resnet2d import ResNet2D
@@ -17,14 +18,17 @@ from egot2x_torch.nn.resnet2d import ResNet2D
 class TTMTrunk(nn.Module):
     """ResNet-18 per frame: (N, T, H, W, 3) -> (N, T, img_feature_dim)."""
 
-    def __init__(self, img_feature_dim: int = 256):
+    def __init__(self, img_feature_dim: int = 256, quant: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.img_feature_dim = img_feature_dim
-        self.video_encoder = ResNet2D(num_classes=img_feature_dim)
+        self.video_encoder = ResNet2D(img_feature_dim, quant, dtype)
 
-    def forward(self, video, audio=None):
+    def forward(self, video, audio=None, stem_in=None):
+        """``stem_in``: the int8 stem of these frames, computed outside."""
         n, t = video.shape[:2]
-        feats = self.video_encoder(video.reshape(n * t, *video.shape[2:]))
+        feats = self.video_encoder(video.reshape(n * t, *video.shape[2:]),
+                                   stem_in)
         return feats.reshape(n, t, self.img_feature_dim)
 
 

@@ -8,7 +8,8 @@ package's separate q/k/v Dense layers are concatenated by the weight
 bridge (``egot2x_torch.core.bridge``).
 
 LayerNorm epsilon is 1e-6 everywhere, the Flax default the JAX package
-runs with, not torch's 1e-5.
+runs with, not torch's 1e-5. Layers compute in the dtype of their input
+(``egot2x_torch.nn.layers``).
 """
 
 from __future__ import annotations
@@ -19,13 +20,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from egot2x_torch.nn.layers import LayerNorm, Linear
 from egot2x_torch.ops.attention import dot_product_attention
 
 LN_EPS = 1e-6
 
 
 def layer_norm(d_model: int) -> nn.LayerNorm:
-    return nn.LayerNorm(d_model, eps=LN_EPS)
+    return LayerNorm(d_model, eps=LN_EPS)
 
 
 def sinusoidal_positional_encoding(max_len: int, d_model: int) -> torch.Tensor:
@@ -64,13 +66,13 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.out_proj = Linear(d_model, d_model)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, query, key, value):
         """query (B, T, D), key and value (B, S, D) -> (B, T, D)."""
-        w_q, w_k, w_v = self.in_proj_weight.chunk(3)
-        b_q, b_k, b_v = self.in_proj_bias.chunk(3)
+        w_q, w_k, w_v = self.in_proj_weight.to(query.dtype).chunk(3)
+        b_q, b_k, b_v = self.in_proj_bias.to(query.dtype).chunk(3)
         b, t, d = query.shape
         heads = lambda x: x.reshape(x.shape[0], x.shape[1], self.num_heads, -1)
         q = heads(F.linear(query, w_q, b_q))
@@ -87,8 +89,8 @@ class TransformerEncoderLayer(nn.Module):
                  dim_feedforward: int = 2048):
         super().__init__()
         self.self_attn = MultiHeadAttention(d_model, num_heads)
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
         self.norm1 = layer_norm(d_model)
         self.norm2 = layer_norm(d_model)
 

@@ -3,12 +3,14 @@
 One request of the released flagship (``TaskFusionMFTransformer3Task``,
 hidden 128, 1 layer, 4 heads; 16 clips x 30 frames, ResNet-18 at 224^2,
 TalkNet at 112^2; random weights from a numpy seed through the weight
-bridge), f32, timed with the host clock around synchronized forwards and
-traced with ``torch.profiler``, twice: with TF32 off (full f32, the
-numbers ``chip_smoke.py`` reports) and with TF32 on for cuDNN and matmuls
-(torch's default for convolutions). Prints one JSON line per setting: ms
-per request, clips/s, the device's busy share of the wall time, and the
-kernels ranked by device time.
+bridge), timed with the host clock around synchronized forwards and
+traced with ``torch.profiler``, in three settings: f32 with TF32 off (full
+f32, the numbers ``chip_smoke.py`` reports), f32 with TF32 on for cuDNN and
+matmuls (torch's default for convolutions), and the int8 bench
+configuration (``quant=True``, ``fuse_stems=True``, bf16 compute,
+calibrated on the request). Prints one JSON line per setting: ms per
+request, clips/s, the device's busy share of the wall time, device time
+by kernel class, and the kernels ranked by device time.
 
     python -m egot2x_torch.tools.profile_flagship
 """
@@ -27,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 from egot2x_torch.core import bridge
 from egot2x_torch.core.registry import build_model
 from egot2x_torch.data.lam import normalize_frames
+from egot2x_torch.nn.quant import calibrate
 
 B, T = 16, 30
 FORWARDS = 3
@@ -44,8 +47,13 @@ def _inputs(seed=1):
 
 def _category(name: str) -> str:
     n = name.lower()
+    if "stem_pool_q_kernel" in n:
+        return "int8 stem kernel (ours)"
     if "stem_pool_kernel" in n:
         return "stem kernel (ours)"
+    if (("gemm" in n or "xmma" in n or "cutlass" in n)
+            and ("s8" in n or "i8" in n or "int8" in n or "imma" in n)):
+        return "int8 matmul (torch._int_mm)"
     if "conv" in n or "xmma" in n or "implicit" in n or "winograd" in n:
         return "cuDNN convolution"
     if "gemm" in n or "cutlass" in n or "matmul" in n:
@@ -63,6 +71,7 @@ def run(model, inputs, mfcc, tf32: bool):
     with torch.no_grad():
         model(*inputs, None, mfcc)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         for _ in range(FORWARDS):
             model(*inputs, None, mfcc)
@@ -91,6 +100,7 @@ def run(model, inputs, mfcc, tf32: bool):
         device_busy_share=busy / traced_ms if traced_ms else None,
         by_category={k: v for k, v in sorted(cats.items(),
                                              key=lambda kv: -kv[1])},
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         top_kernels=[dict(name=k[:90], ms=ms, launches=n)
                      for k, (ms, n) in top])
 
@@ -102,13 +112,22 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
-    model = build_model("TaskFusionMFTransformer3Task", hidden_dim=128,
-                        num_heads=4, num_layers=1)
-    bridge.load_jax_variables(model, bridge.random_jax_variables(model, 0))
     inputs, mfcc = _inputs()
-    for tf32 in (False, True):
-        print(json.dumps(dict(card=card, clips=B, frames=T,
-                              **run(model, inputs, mfcc, tf32))), flush=True)
+    for config in ({}, dict(quant=True, fuse_stems=True,
+                            dtype=torch.bfloat16)):
+        model = build_model("TaskFusionMFTransformer3Task", hidden_dim=128,
+                            num_heads=4, num_layers=1, **config)
+        bridge.load_jax_variables(model,
+                                  bridge.random_jax_variables(model, 0))
+        name = "float"
+        if config:
+            calibrate(model, *inputs, None, mfcc)
+            name = "int8 (quant, fuse_stems, bf16)"
+        for tf32 in ((False, True) if not config else (False,)):
+            print(json.dumps(dict(card=card, config=name, clips=B, frames=T,
+                                  **run(model, inputs, mfcc, tf32))),
+                  flush=True)
+        del model
 
 
 if __name__ == "__main__":

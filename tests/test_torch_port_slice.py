@@ -155,6 +155,9 @@ def test_port_imports_neither_jax_nor_egot2x():
     files = sorted((ROOT / "egot2x_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"egot2x_torch/nn/quant.py", "egot2x_torch/nn/fused_stem.py",
+            "egot2x_torch/nn/layers.py", "egot2x_torch/ops/int8.py"} <= names
     bad = [(f.name, m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "egot2x")]
     assert bad == []
