@@ -8,8 +8,9 @@ Run from the repository root, with one CUDA card visible:
 Phases, each printing one line or more:
 
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
-  2. build    nvcc of the kernels' source (time; registers, spills and
-              shared memory of every kernel);
+  2. build    nvcc of the kernels' sources, one process per source, all
+              started together (time; registers, spills and shared memory
+              of every kernel);
   3. kernel   each stem kernel against its plain PyTorch version on the card
               at the main paths' shapes: the float stems (f32, bf16) and the
               int8 stems (2D with 1 and 2 trunks stacked, 3D; f32 and bf16
@@ -17,6 +18,11 @@ Phases, each printing one line or more:
               yardstick's and the card's bound for the same work;
   4. int8conv the int8 conv (im2col + ``torch._int_mm``) against its exact
               plain version at a layer1 and a layer4 shape, bit for bit;
+     flash    the flash-attention kernel against its plain version at
+              TalkNet's shapes on a 2048-frame track ((8, 2048, 16) and
+              (8, 2048, 32)) and the JAX oracle's odd (2, 257, 40) over 130
+              keys, f32 and bf16, with its time beside the plain version's,
+              ``scaled_dot_product_attention``'s and the card's bound;
   5. slice    the float flagship ``TaskFusionMFTransformer3Task`` at the
               released widths (hidden 128, 1 layer, 4 heads, FFN 2048;
               ResNet-18 at 224^2, TalkNet at 112^2, f32) built by
@@ -33,7 +39,19 @@ Phases, each printing one line or more:
               fused int8 RGB stem, one int8 TalkNet stem and 57 int8 convs
               per forward; its logits must agree with the float path's
               (cosine > 0.99), with the port's int8 CPU forward on clip 0
-              and across the feeds.
+              and across the feeds;
+  7. asd      ``TalkNetWithHeads`` (Stage-I ASD) with seeded weights through
+              the bridge, answering an eval bucket (16 tracks x 150 frames)
+              and one whole track of 2048 frames; per forward one TalkNet
+              stem launch, and three flash launches on the track, none on
+              the bucket; track 0 of the bucket must match the port's CPU
+              forward, the whole track the same model with its attention
+              computed by the plain version (logits and ``eval_step``);
+  8. asd2     the Stage-II ASD translator ``TaskFusionMFTransformer3TaskASD``
+              behind the lossAV head at its defaults (hidden 128, 1 layer,
+              4 heads) on a bucket of 16 tracks x 150 frames with RGB at
+              224^2; per forward two RGB stems and one TalkNet stem; track
+              0 must match the port's CPU forward.
 
 Then one JSON line of every kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -41,6 +59,7 @@ line. Float32 runs in full f32 throughout: TF32 is off for cuDNN and for
 matmuls, so the card and the CPU compute the same function.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -69,6 +88,22 @@ INT8_LOGIT_TOL = 5e-2
 INT8_VS_FLOAT_COSINE = 0.99
 INT8_CARD_CPU_COSINE = 0.999
 CONVS_PER_FORWARD = 57   # 19 in each ResNet-18, 19 in the AVSR ResNet
+SOURCES = ("stem_pool", "flash_attention")   # egot2x_torch/csrc/<name>.cu
+# flash kernel shapes (name, BH, N, S, D): TalkNet's attention on one track
+# of 2048 frames (8 heads; cross A<->V d 128, self-AV d 256) and the JAX
+# oracle's odd shape (tests/test_pallas_attention.py)
+FLASH_SHAPES = [("cross", 8, 2048, 2048, 16), ("self_av", 8, 2048, 2048, 32),
+                ("oracle", 2, 257, 130, 40)]
+FLASH_PER_FORWARD = {"cross": 2, "self_av": 1}   # launches on the track
+# kernel vs plain: f32 as tests/test_pallas_attention.py:27 holds the Pallas
+# kernel; bf16 output is one rounding of the f32 result
+FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-2)}  # rtol, atol
+# exponentials: 16 per clock per SM (MUFU, H100 data sheet) x 132 SMs x the
+# 1.98 GHz boost clock, reckoned, not measured
+MUFU_EXP_PER_S = 16 * 132 * 1.98e9
+ASD_TRACKS, ASD_FRAMES = 16, 150   # run_asd's eval bucket at the 150 base
+ASD_LONG = 2048                    # one whole track: the flash threshold
+ASD_REPEATS = 2                    # timed forwards per request
 
 
 def fail(msg):
@@ -110,9 +145,16 @@ def device_phase():
 
 
 def _kernel_label(mangled):
-    """'stem_pool_q_kernel<bf16,2d,n2>' from a mangled instance name."""
+    """'stem_pool_q_kernel<bf16,2d,n2>' or 'flash_attention_kernel<f32,
+    dpt16,g1>' from a mangled instance name."""
     import re
 
+    m = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                  mangled)
+    if m:
+        dtype, dpt, g = m.groups()
+        return (f"flash_attention_kernel<{'f32' if dtype == 'f' else 'bf16'},"
+                f"dpt{dpt},g{g}>")
     m = re.search(r"(stem_pool(?:_q)?_kernel)I(f|13__nv_bfloat16)"
                   r"((?:Li\d+E)+)E", mangled)
     if not m:
@@ -143,17 +185,28 @@ def _ptxas_report(log):
 
 
 def build_phase():
-    from egot2x_torch.ops import build, stem
+    """Every kernel source built at once, one nvcc each."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    b = build.build("stem_pool")
-    report = _ptxas_report(b.log)
-    phase("build", source=f"egot2x_torch/csrc/{b.name}.cu",
-          seconds=round(b.seconds, 3),
-          registers={k: r for k, (r, _) in report.items()},
-          spill_store_bytes={k: s for k, (_, s) in report.items()},
-          smem_bytes=stem.kernel_smem_bytes())
-    if not report:
-        fail("no kernel in the ptxas report")
+    from egot2x_torch.ops import build, flash, stem
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(build.build, SOURCES))
+    wall = time.perf_counter() - t0
+    smem = {"stem_pool": stem.kernel_smem_bytes(),
+            "flash_attention": {f"d{d}": flash.kernel_smem_bytes(d)
+                                for d in (16, 32, 40, 64, 128)}}
+    for b in built:
+        report = _ptxas_report(b.log)
+        phase("build", source=f"egot2x_torch/csrc/{b.name}.cu",
+              seconds=round(b.seconds, 3),
+              registers={k: r for k, (r, _) in report.items()},
+              spill_store_bytes={k: s for k, (_, s) in report.items()},
+              smem_bytes=smem[b.name])
+        if not report:
+            fail(f"no kernel in the ptxas report of {b.name}.cu")
+    phase("build", sources=len(built), wall_seconds=round(wall, 3))
 
 
 def _stem_frames(kind, dtype):
@@ -392,6 +445,90 @@ def int8_conv_phase():
     return rows["layer1.0.conv1"]
 
 
+def _flash_bound(q, k, out):
+    """Least time of one flash launch on the card: the larger of its
+    FLOPs (4 BH N S D: Q K^T and P V) at the peak of the input type, its
+    BH N S exponentials at the reckoned MUFU rate, and its bytes (q, k, v
+    read once, the output written once) at HBM bandwidth. Returns (bound
+    ms, "bytes" or "operations", which of the three, flops, exps, bytes)."""
+    bh, n, d = q.shape
+    s = k.shape[1]
+    flops = 4.0 * bh * n * s * d
+    exps = float(bh * n * s)
+    nbytes = (q.numel() + 2 * k.numel() + out.numel()) * q.element_size()
+    times = {"flops": flops / PEAK_FLOPS[str(q.dtype).split(".")[1]],
+             "exps": exps / MUFU_EXP_PER_S, "bytes": nbytes / HBM_BYTES_PER_S}
+    which = max(times, key=times.get)
+    return (times[which] * 1e3, "bytes" if which == "bytes" else "operations",
+            which, flops, exps, nbytes)
+
+
+def flash_phase():
+    """The flash kernel vs its plain version, f32 and bf16, at TalkNet's
+    track shapes and the JAX oracle's odd shape; returns the rows per
+    (shape name, dtype). The yardstick is ``scaled_dot_product_attention``
+    on (1, BH, N, D) views: its fused backends take 4-D input only."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from egot2x_torch.ops import flash
+
+    rows = {}
+    for name, bh, n, s, d in FLASH_SHAPES:
+        rng = np.random.default_rng(SEED + d)
+        host = [rng.standard_normal((bh, m, d)).astype(np.float32)
+                for m in (n, s, s)]
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = (torch.from_numpy(x).cuda().to(getattr(torch, dtype))
+                       for x in host)
+            out = flash.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            ref = flash.flash_attention_plain(q, k, v).float()
+            rtol, atol = FLASH_TOL[dtype]
+            err = (out.float() - ref).abs()
+            ok = bool((err <= atol + rtol * ref.abs()).all())
+            row = dict(
+                kernel="flash_attention", shape_name=name, dtype=dtype,
+                q=list(q.shape), k=list(k.shape), max_abs_err=float(err.max()),
+                rtol=rtol, atol=atol, ok=ok,
+                ms=time_ms(lambda: flash.flash_attention(q, k, v)),
+                plain_ms=time_ms(lambda: flash.flash_attention_plain(q, k, v)),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    *(x.unsqueeze(0) for x in (q, k, v)))))
+            (row["bound_ms"], row["bound_by"], row["bound_detail"],
+             row["flops"], row["exps"], row["bytes"]) = _flash_bound(q, k, out)
+            phase("flash", **row)
+            if not ok:
+                fail(f"flash_attention {name} {dtype} disagrees with its "
+                     f"plain version: max abs err {row['max_abs_err']}")
+            rows[name, dtype] = row
+            del q, k, v, out, ref, err
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _flash_line_row(rows, counts):
+    """The kernels-line row of the flash kernel: each time the mean per
+    launch over one forward's launches on the main path (f32, two cross
+    launches at D 16, one self-AV launch at D 32)."""
+    mix = [(rows[name, "float32"], w) for name, w in FLASH_PER_FORWARD.items()]
+    total = sum(w for _, w in mix)
+    mean = lambda key: sum(r[key] * w for r, w in mix) / total
+    # what bounds the launch that weighs most in the mean bound
+    bound_by = max(mix, key=lambda rw: rw[0]["bound_ms"] * rw[1])[0]["bound_by"]
+    return dict(name="flash_attention", route="cuda",
+                source="egot2x_torch/csrc/flash_attention.cu",
+                replaces="egot2x/ops/pallas_attention.py:77", dtype="float32",
+                shapes="mean per launch of one 2048-frame TalkNet forward: "
+                       "2 x (8, 2048, 16), 1 x (8, 2048, 32)",
+                launches=counts["flash_attention"],
+                max_abs_err=max(r["max_abs_err"] for r, _ in mix),
+                ms=mean("ms"), plain_ms=mean("plain_ms"),
+                bound_ms=mean("bound_ms"), bound_by=bound_by,
+                library_ms=mean("library_ms"))
+
+
 def _requests():
     import numpy as np
 
@@ -408,13 +545,14 @@ def _requests():
 
 def _counters():
     """Every kernel wrapper of the port, by name."""
-    from egot2x_torch.ops import int8, stem
+    from egot2x_torch.ops import flash, int8, stem
 
     return {"stem_pool_2d": stem.stem_pool_2d,
             "stem_pool_3d": stem.stem_pool_3d,
             "stem_pool_q_2d": stem.stem_pool_q_2d,
             "stem_pool_q_3d": stem.stem_pool_q_3d,
-            "int8_conv2d": int8.conv2d_int8}
+            "int8_conv2d": int8.conv2d_int8,
+            "flash_attention": flash.flash_attention}
 
 
 def _build_flagship(**kw):
@@ -577,6 +715,183 @@ def int8_slice_phase(card, requests, float_logits):
     return counts
 
 
+def _asd_batch(tracks, frames, seed):
+    """An ASD request on the card: grey faces in [0, 255] (f32), MFCC at
+    4 rows per frame, frame labels."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    faces = rng.integers(0, 256, (tracks, frames, ASD_IMG, ASD_IMG),
+                         dtype=np.uint8)
+    return dict(
+        faces=torch.from_numpy(faces).cuda().float(),
+        mfcc=torch.from_numpy(rng.standard_normal(
+            (tracks, 4 * frames, 13), dtype=np.float32)).cuda(),
+        labels=torch.from_numpy(rng.integers(0, 2, (tracks, frames))).cuda())
+
+
+def _serve_requests(forward):
+    """A main path: every launch count set to 0, a warm-up and
+    ``ASD_REPEATS`` timed forwards, the counts read. Returns (output of
+    the last forward, ms per request, peak GiB, launch counts, forwards)."""
+    import torch
+
+    for fn in _counters().values():
+        fn.launches = 0
+    with torch.no_grad():
+        forward()                                        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(ASD_REPEATS):
+            out = forward()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in _counters().items()}
+    return (out, seconds / ASD_REPEATS * 1e3,
+            torch.cuda.max_memory_allocated() / 2**30, counts,
+            ASD_REPEATS + 1)
+
+
+def _check_close(what, got, want):
+    """max |got - want| <= LOGIT_TOL (1 + max |want|) for each head."""
+    import numpy as np
+
+    errs = {}
+    for key in want:
+        g, w = got[key].float().cpu(), want[key].float().cpu()
+        errs[key] = float((g - w).abs().max())
+        if (g.shape != w.shape or not np.isfinite(errs[key])
+                or errs[key] > LOGIT_TOL * (1.0 + float(w.abs().max()))):
+            fail(f"{what}: {key} differs by {errs[key]} "
+                 f"(shapes {tuple(g.shape)}, {tuple(w.shape)})")
+    return errs
+
+
+def _check_finite(what, outs, shape):
+    import torch
+
+    for key, out in outs.items():
+        if out.shape != shape or not bool(torch.isfinite(out).all()):
+            fail(f"{what}: {key} of shape {tuple(out.shape)}, finite "
+                 f"{bool(torch.isfinite(out).all())}")
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """The flash route computing with the kernel's plain version, on the
+    card (for the comparison only)."""
+    from egot2x_torch.ops import flash
+
+    kernel = flash.flash_attention
+    flash.flash_attention = flash.flash_attention_plain
+    try:
+        yield
+    finally:
+        flash.flash_attention = kernel
+
+
+def asd_phase(card):
+    """Stage-I ASD (``TalkNetWithHeads``) on an eval bucket and on one
+    whole 2048-frame track; returns the launch counts of the track's
+    path."""
+    import torch
+
+    from egot2x_torch.core import bridge
+    from egot2x_torch.core.registry import build_model
+    from egot2x_torch.tasks.asd import ActiveSpeakerDetection
+
+    model = build_model("TalkNetWithHeads")
+    bridge.load_jax_variables(model, bridge.random_jax_variables(model, SEED))
+    task = ActiveSpeakerDetection(model)
+    requests = {"bucket": (_asd_batch(ASD_TRACKS, ASD_FRAMES, SEED + 2),
+                           dict(stem_pool_3d=1)),
+                "track": (_asd_batch(1, ASD_LONG, SEED + 3),
+                          dict(stem_pool_3d=1, flash_attention=3))}
+    counts = {}
+    for name, (batch, per_forward) in requests.items():
+        tracks, frames = batch["labels"].shape
+        outs, ms, peak, counts[name], forwards = _serve_requests(
+            lambda: model(batch["mfcc"], batch["faces"]))
+        expect = _expected(forwards, **per_forward)
+        phase("asd", card=card, model="TalkNetWithHeads", request=name,
+              tracks=tracks, frames=frames, ms_per_request=ms,
+              frames_per_s=tracks * frames / ms * 1e3, peak_mem_gib=peak,
+              launches=counts[name], expected_launches=expect)
+        if counts[name] != expect:
+            fail(f"asd {name}: launches {counts[name]}, expected {expect}")
+        _check_finite(f"asd {name}", outs, (tracks, frames, 2))
+        if name == "bucket":
+            cpu = build_model("TalkNetWithHeads", device="cpu")
+            cpu.load_state_dict({k: v.cpu()
+                                 for k, v in model.state_dict().items()})
+            with torch.no_grad():
+                want = cpu(batch["mfcc"][:1].cpu(), batch["faces"][:1].cpu())
+            errs = _check_close("asd bucket track 0, card vs CPU",
+                                {k: v[:1] for k, v in outs.items()}, want)
+            phase("asd_check", request=name, vs="cpu, track 0",
+                  max_abs_err=errs, tol=LOGIT_TOL)
+        else:
+            got_eval = task.eval_step(batch)
+            with _plain_attention(), torch.no_grad():
+                want = model(batch["mfcc"], batch["faces"])
+                want_eval = task.eval_step(batch)
+            errs = _check_close("asd track, flash vs plain attention", outs,
+                                want)
+            agree = all(torch.equal(got_eval[k], want_eval[k])
+                        for k in ("correct", "total"))
+            phase("asd_check", request=name, vs="plain attention on the card",
+                  max_abs_err=errs, tol=LOGIT_TOL,
+                  correct=int(got_eval["correct"].sum()),
+                  total=int(got_eval["total"].sum()), eval_agrees=agree)
+            if not agree:
+                fail("asd track: eval_step differs under plain attention")
+    return counts["track"]
+
+
+def asd2_phase(card):
+    """The Stage-II ASD translator behind the lossAV head at its defaults
+    on a bucket of 16 tracks x 150 frames."""
+    import numpy as np
+    import torch
+
+    from egot2x_torch.core import bridge
+    from egot2x_torch.nn.resnet2d import normalize_u8_frames
+    from egot2x_torch.tasks.asd_2loader import build_translator_with_head
+
+    model = build_translator_with_head("TaskFusionMFTransformer3TaskASD")
+    bridge.load_jax_variables(model, bridge.random_jax_variables(model, SEED))
+    batch = _asd_batch(ASD_TRACKS, ASD_FRAMES, SEED + 4)
+    rng = np.random.default_rng(SEED + 5)
+    rgb = rng.integers(0, 256, (ASD_TRACKS, ASD_FRAMES, IMG, IMG, 3),
+                       dtype=np.uint8)
+    frames = normalize_u8_frames(torch.from_numpy(rgb).cuda())   # f32
+    audio = torch.zeros(ASD_TRACKS, ASD_FRAMES * 16000 // 30).cuda()  # unused
+    inputs = (frames, batch["faces"], audio, batch["mfcc"])
+    out, ms, peak, counts, forwards = _serve_requests(lambda: model(*inputs))
+    expect = _expected(forwards, stem_pool_2d=2, stem_pool_3d=1)
+    core = model.translator
+    phase("asd2", card=card, model="TaskFusionMFTransformer3TaskASD",
+          head="lossAV", hidden=core.output_dim,
+          layers=len(core.transformer_encoder.layers),
+          heads=core.transformer_encoder.layers[0].self_attn.num_heads,
+          tracks=ASD_TRACKS, frames=ASD_FRAMES, rgb=IMG, ms_per_request=ms,
+          frames_per_s=ASD_TRACKS * ASD_FRAMES / ms * 1e3, peak_mem_gib=peak,
+          launches=counts, expected_launches=expect)
+    if counts != expect:
+        fail(f"asd2: launches {counts}, expected {expect}")
+    _check_finite("asd2", {"logits": out}, (ASD_TRACKS * ASD_FRAMES, 2))
+    cpu = build_translator_with_head("TaskFusionMFTransformer3TaskASD",
+                                     device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        want = cpu(*(x[:1].cpu() for x in inputs))
+    errs = _check_close("asd2 track 0, card vs CPU",
+                        {"logits": out[:ASD_FRAMES]}, {"logits": want})
+    phase("asd2_check", vs="cpu, track 0", max_abs_err=errs, tol=LOGIT_TOL)
+
+
 def _line_row(name, row, counts, replaces, route="cuda",
               source="egot2x_torch/csrc/stem_pool.cu"):
     return dict(name=name, route=route, source=source, replaces=replaces,
@@ -604,9 +919,13 @@ def main():
     build_phase()
     kernels = {**kernel_phase(), **kernel_q_phase()}
     conv = int8_conv_phase()
+    flash_rows = flash_phase()
     requests = list(_requests())
     float_counts, float_logits = slice_phase(card, requests)
     int8_counts = int8_slice_phase(card, requests, float_logits)
+    del requests
+    asd_counts = asd_phase(card)
+    asd2_phase(card)
     float_stem, int8_stem = ("egot2x/ops/pallas_stem.py:232",
                              "egot2x/ops/pallas_stem.py:351")
     # each kernel at its main path's input type: f32 (float slice), bf16
@@ -620,6 +939,7 @@ def main():
         "int8_conv2d", conv, int8_counts,
         "none: no TPU kernel (XLA int8 conv, egot2x/nn/quant.py:102)",
         route="library (torch._int_mm)", source="egot2x_torch/ops/int8.py"))
+    line.append(_flash_line_row(flash_rows, asd_counts))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

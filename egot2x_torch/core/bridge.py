@@ -19,7 +19,9 @@ The layouts differ as follows:
 The map is written module by module: each entry pairs a port module path
 with a JAX module path, and the module's type says which leaves it has.
 Both directions check that every leaf on either side was used, so a name
-that drifts fails loudly.
+that drifts fails loudly. Models that wrap another (``TalkNetWithHeads``
+around TalkNet, ``_TranslatorWithHead`` around an ASD translator) take
+the wrapped model's map under its path on either side, plus their heads.
 """
 
 from __future__ import annotations
@@ -30,12 +32,16 @@ import numpy as np
 import torch
 from torch import nn
 
+from egot2x_torch.models.asd import TalkNetBackbone, TalkNetWithHeads
 from egot2x_torch.nn.common import MultiHeadAttention, TransformerEncoder
 from egot2x_torch.nn.quant import SCALE_BUFFERS
 from egot2x_torch.nn.resnet2d import BasicBlock2D, ResNet2D
-from egot2x_torch.nn.talknet import (AVSRResNetLayer, GlobalLayerNorm,
-                                     TalkNetModel, VisualFrontend)
-from egot2x_torch.translate.egot2s_hhi import _MFTransformerCore
+from egot2x_torch.nn.talknet import (AVSRResNetLayer, CrossAttentionLayer,
+                                     GlobalLayerNorm, TalkNetModel,
+                                     VisualFrontend)
+from egot2x_torch.tasks.asd_2loader import _TranslatorWithHead
+from egot2x_torch.translate.egot2s_hhi import (_FrameBaseline,
+                                               _MFTransformerCore)
 
 # (torch key, [(collection, jax path)], layout)
 Rule = Tuple[str, List[Tuple[str, Tuple[str, ...]]], str]
@@ -170,32 +176,64 @@ def _talknet(t: str, j: str) -> Iterator[Tuple[str, str]]:
         yield from _attention_layer(f"{t}{tn}", f"{j}/{jn}")
 
 
-def _translator(model: _MFTransformerCore) -> Iterator[Tuple[str, str]]:
-    yield from _resnet18("lam_model.base_model.", "lam_model/trunk/base_model")
-    yield from _resnet18("ttm_model.video_encoder.",
-                         "ttm_model/trunk/video_encoder")
+def _trunks(model: nn.Module) -> Iterator[Tuple[str, str]]:
+    """The frozen backbones a translator holds."""
+    if hasattr(model, "lam_model"):
+        yield from _resnet18("lam_model.base_model.",
+                             "lam_model/trunk/base_model")
+    if hasattr(model, "ttm_model"):
+        yield from _resnet18("ttm_model.video_encoder.",
+                             "ttm_model/trunk/video_encoder")
     if hasattr(model, "asd_model"):
         yield from _talknet("asd_model.", "asd_model")
+
+
+def _translator(model: _MFTransformerCore) -> Iterator[Tuple[str, str]]:
+    yield from _trunks(model)
     for s in model.streams:
         yield f"proj_{s}", f"core/proj_{s}"
     yield "ln", "core/ln"
     yield from _encoder("transformer_encoder.", "core/transformer_encoder",
                         len(model.transformer_encoder.layers))
-    yield "linear_head.0", "head_ln"
+    yield "linear_head.0", "head_ln"   # absent from the ASD variant
     yield "linear_head.1", "head_fc"
+
+
+def _nested(module: nn.Module, t: str, j: str) -> List[Rule]:
+    """``bridge_rules(module)`` for a submodule at port path ``t`` and JAX
+    path ``j``."""
+    return [(f"{t}.{key}", [(coll, _p(j) + path) for coll, path in sources],
+             layout) for key, sources, layout in bridge_rules(module)]
 
 
 def bridge_rules(model: nn.Module) -> List[Rule]:
     """Every leaf rule between ``model`` and the JAX tree it mirrors."""
+    if isinstance(model, TalkNetWithHeads):
+        heads = (("lossAV", "fc_av"), ("lossA", "fc_a"), ("lossV", "fc_v"))
+        return _nested(model.model, "model", "talknet") + [
+            r for t, j in heads
+            for r in _leaf_rules(getattr(model, t).FC, f"{t}.FC", j)]
+    if isinstance(model, _TranslatorWithHead):
+        return (_nested(model.translator, "translator", "translator")
+                + _leaf_rules(model.lossAV.FC, "lossAV.FC", "loss_av/fc"))
     if isinstance(model, _MFTransformerCore):
         pairs = _translator(model)
         extra = [("task_embed", [("params", ("core", "task_embed"))], "id")]
+    elif isinstance(model, _FrameBaseline):
+        pairs = [*_trunks(model), ("fc1", "fc1")]
+        extra = []
+    elif isinstance(model, TalkNetBackbone):
+        pairs, extra = _talknet("", "talknet"), []
     elif isinstance(model, ResNet2D):
         pairs, extra = _resnet18("", ""), []
     elif isinstance(model, TalkNetModel):
         pairs, extra = _talknet("", ""), []
     elif isinstance(model, TransformerEncoder):
         pairs, extra = _encoder("", "", len(model.layers)), []
+    elif isinstance(model, CrossAttentionLayer):
+        pairs = [(leaf, leaf) for leaf in ("self_attn", "linear1", "linear2",
+                                           "norm1", "norm2")]
+        extra = []
     else:
         raise TypeError(f"no bridge for {type(model).__name__}")
     modules = dict(model.named_modules())

@@ -61,9 +61,16 @@ def build_model(name: str, device=None, **kwargs) -> torch.nn.Module:
     ``load_state_dict``; a ``quant`` model then needs
     :func:`egot2x_torch.nn.quant.calibrate` (or calibrated scales in what
     it loads) before int8 inference, and raises without them."""
+    import egot2x_torch.models.asd  # noqa: F401  (registers)
     import egot2x_torch.translate.egot2s_hhi  # noqa: F401  (registers)
 
-    model = MODEL_REGISTRY.get(name)(**kwargs).to(resolve_device(device))
+    return place(MODEL_REGISTRY.get(name)(**kwargs), device)
+
+
+def place(model: torch.nn.Module, device=None) -> torch.nn.Module:
+    """``model`` on ``device`` (:func:`resolve_device`), its 4-D weights in
+    ``torch.channels_last``, in eval mode."""
+    model = model.to(resolve_device(device))
     for m in model.modules():
         if isinstance(m, torch.nn.Conv2d):
             m.to(memory_format=torch.channels_last)

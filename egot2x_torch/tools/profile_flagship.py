@@ -1,4 +1,4 @@
-"""Where the flagship's time goes on the card.
+"""Where the flagship's and the ASD model's time goes on the card.
 
 One request of the released flagship (``TaskFusionMFTransformer3Task``,
 hidden 128, 1 layer, 4 heads; 16 clips x 30 frames, ResNet-18 at 224^2,
@@ -8,9 +8,12 @@ traced with ``torch.profiler``, in three settings: f32 with TF32 off (full
 f32, the numbers ``chip_smoke.py`` reports), f32 with TF32 on for cuDNN and
 matmuls (torch's default for convolutions), and the int8 bench
 configuration (``quant=True``, ``fuse_stems=True``, bf16 compute,
-calibrated on the request). Prints one JSON line per setting: ms per
-request, clips/s, the device's busy share of the wall time, device time
-by kernel class, and the kernels ranked by device time.
+calibrated on the request). Then Stage-I ASD (``TalkNetWithHeads``, f32
+with TF32 off) on an eval bucket of 16 tracks x 150 frames and on one
+track of 2048 frames, whose attention runs through the flash kernel.
+Prints one JSON line per setting: ms per request, clips/s (frames/s for
+ASD), the device's busy share of the wall time, device time by kernel
+class, and the kernels ranked by device time.
 
     python -m egot2x_torch.tools.profile_flagship
 """
@@ -47,6 +50,8 @@ def _inputs(seed=1):
 
 def _category(name: str) -> str:
     n = name.lower()
+    if "flash_attention_kernel" in n:
+        return "flash attention kernel (ours)"
     if "stem_pool_q_kernel" in n:
         return "int8 stem kernel (ours)"
     if "stem_pool_kernel" in n:
@@ -65,23 +70,24 @@ def _category(name: str) -> str:
     return "elementwise and other"
 
 
-def run(model, inputs, mfcc, tf32: bool):
+def run(forward, tf32: bool):
+    """Profile of ``forward()``, a request, after a warm-up."""
     torch.backends.cudnn.allow_tf32 = tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
     with torch.no_grad():
-        model(*inputs, None, mfcc)
+        forward()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         for _ in range(FORWARDS):
-            model(*inputs, None, mfcc)
+            forward()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / FORWARDS * 1e3
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(FORWARDS):
-                model(*inputs, None, mfcc)
+                forward()
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) / FORWARDS * 1e3
     kernels, cats = {}, defaultdict(float)
@@ -95,7 +101,7 @@ def run(model, inputs, mfcc, tf32: bool):
     busy = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     return dict(
-        tf32=tf32, ms_per_request=wall_ms, clips_per_s=B * 1e3 / wall_ms,
+        tf32=tf32, ms_per_request=wall_ms,
         traced_ms_per_request=traced_ms, device_busy_ms=busy,
         device_busy_share=busy / traced_ms if traced_ms else None,
         by_category={k: v for k, v in sorted(cats.items(),
@@ -124,10 +130,26 @@ def main():
             calibrate(model, *inputs, None, mfcc)
             name = "int8 (quant, fuse_stems, bf16)"
         for tf32 in ((False, True) if not config else (False,)):
-            print(json.dumps(dict(card=card, config=name, clips=B, frames=T,
-                                  **run(model, inputs, mfcc, tf32))),
-                  flush=True)
+            row = run(lambda: model(*inputs, None, mfcc), tf32)
+            print(json.dumps(dict(
+                card=card, config=name, clips=B, frames=T,
+                clips_per_s=B * 1e3 / row["ms_per_request"], **row)),
+                flush=True)
         del model
+    model = build_model("TalkNetWithHeads")
+    bridge.load_jax_variables(model, bridge.random_jax_variables(model, 0))
+    rng = np.random.default_rng(2)
+    for tracks, frames in ((16, 150), (1, 2048)):
+        faces = torch.from_numpy(rng.integers(
+            0, 256, (tracks, frames, 112, 112), dtype=np.uint8)).cuda().float()
+        mfcc = torch.from_numpy(rng.standard_normal(
+            (tracks, 4 * frames, 13), dtype=np.float32)).cuda()
+        row = run(lambda: model(mfcc, faces), False)
+        print(json.dumps(dict(
+            card=card, config="asd TalkNetWithHeads", tracks=tracks,
+            frames=frames,
+            frames_per_s=tracks * frames * 1e3 / row["ms_per_request"],
+            **row)), flush=True)
 
 
 if __name__ == "__main__":

@@ -8,6 +8,13 @@ Counterpart of ``egot2x/translate/egot2s_hhi.py``, inference:
     + sinusoidal PE restarting per stream, concatenated in the order ttm,
     lam, asd, a post-LN TransformerEncoder, the token mean, LN + Linear->2.
   * ``TaskFusionMFTransformer2Task``: the same without the TalkNet stream.
+  * ``TaskFusionMFTransformer3TaskASD``, ASD as the target: the same
+    fusion with the asd stream first (its task id stays 2) and no head;
+    it returns the first T_asd encoder tokens as per-frame features
+    (B*T, D) for the lossAV head (``tasks/asd_2loader.py``).
+  * ASD baselines ``FinetuneASD``, ``LAM2ASD`` and ``TTM2ASD``: one frozen
+    backbone's per-frame features through ``fc1`` 256 -> D and a ReLU,
+    (B*T, D).
 
 Task ids are fixed per stream (ttm 0, lam 1, asd 2). Parameter names are
 the reference torch model's (``lam_model.base_model``,
@@ -53,7 +60,7 @@ class _MFTransformerCore(nn.Module):
     translators. ``streams`` names the token streams in concat order."""
 
     def __init__(self, streams, hidden_dim: int, num_heads: int,
-                 num_layers: int, dtype=torch.float32):
+                 num_layers: int, dtype=torch.float32, head: bool = True):
         super().__init__()
         self.streams = tuple(streams)
         self.compute_dtype = dtype
@@ -65,18 +72,23 @@ class _MFTransformerCore(nn.Module):
         self.transformer_encoder = TransformerEncoder(
             num_layers, hidden_dim, num_heads, dim_feedforward=2048)
         self.ln = layer_norm(hidden_dim)
-        self.linear_head = nn.Sequential(layer_norm(hidden_dim),
-                                         Linear(hidden_dim, 2))
+        if head:
+            self.linear_head = nn.Sequential(layer_norm(hidden_dim),
+                                             Linear(hidden_dim, 2))
 
-    def fuse(self, tokens):
-        """tokens: {stream: (B, T_s, 256)} -> logits (B, 2), in the
-        compute dtype."""
+    def encode(self, tokens):
+        """tokens: {stream: (B, T_s, 256)} -> encoder output
+        (B, sum T_s, D) in stream order, in the compute dtype."""
         prepared = [
             _encode_prepare(getattr(self, f"proj_{s}")(tokens[s]), self.ln,
                             self.task_embed, TASK_IDS[s], self.pos_embed)
             for s in self.streams]
-        out = self.transformer_encoder(torch.cat(prepared, dim=1))
-        return self.linear_head(out.mean(dim=1))
+        return self.transformer_encoder(torch.cat(prepared, dim=1))
+
+    def fuse(self, tokens):
+        """tokens: {stream: (B, T_s, 256)} -> logits (B, 2), in the
+        compute dtype."""
+        return self.linear_head(self.encode(tokens).mean(dim=1))
 
 
 @MODEL_REGISTRY.register(name="TaskFusionMFTransformer2Task")
@@ -141,3 +153,88 @@ class TaskFusionMFTransformer3Task(_MFTransformerCore):
         if key != self._checked_scales:
             assert_calibrated(self)
             self._checked_scales = key
+
+
+@MODEL_REGISTRY.register(name="TaskFusionMFTransformer3TaskASD")
+class TaskFusionMFTransformer3TaskASD(_MFTransformerCore):
+    """LAM + TTM + ASD token fusion -> per-frame ASD features (B*T, D):
+    the asd stream goes first, and its T_asd encoder tokens are the
+    output. The reference's serialized ``linear_head`` is dead on this
+    path and not built (load its checkpoints with ``strict=False``)."""
+
+    def __init__(self, hidden_dim: int = 256, num_heads: int = 4,
+                 num_layers: int = 3, dtype=torch.float32):
+        super().__init__(("asd", "ttm", "lam"), hidden_dim, num_heads,
+                         num_layers, dtype, head=False)
+        self.lam_model = LAMBackbone(dtype=dtype)
+        self.ttm_model = TTMBackbone(dtype=dtype)
+        self.asd_model = TalkNetModel(dtype=dtype)
+        self.output_dim = hidden_dim
+
+    def forward(self, video, video_asd, audio, audio_asd):
+        """Inputs as the 3-task translator's."""
+        video = normalize_u8_frames(video, self.compute_dtype)  # once
+        asd, _, _ = self.asd_model(audio_asd, video_asd)
+        out = self.encode({"asd": asd, "ttm": self.ttm_model(video, audio),
+                           "lam": self.lam_model(video)})
+        n, t = asd.shape[:2]
+        return out[:, :t].reshape(n * t, self.output_dim)
+
+
+class _FrameBaseline(nn.Module):
+    """One frozen backbone's per-frame features -> ``fc1`` 256 -> D, ReLU
+    -> (B*T, D). The fusion widths (``num_heads``, ``num_layers``) are
+    taken and unused, as in the JAX package, so any ASD translator builds
+    from one set of arguments."""
+
+    def __init__(self, hidden_dim: int = 256, num_heads: int = 4,
+                 num_layers: int = 3, dtype=torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.output_dim = hidden_dim
+        self.fc1 = Linear(256, hidden_dim)
+
+    def features(self, video, video_asd, audio, audio_asd):
+        raise NotImplementedError
+
+    def forward(self, video, video_asd, audio, audio_asd):
+        feats = self.features(video, video_asd, audio, audio_asd)
+        n, t = feats.shape[:2]
+        return torch.relu(self.fc1(feats)).reshape(n * t, self.output_dim)
+
+
+@MODEL_REGISTRY.register(name="FinetuneASD")
+class FinetuneASD(_FrameBaseline):
+    """Frozen TalkNet's AV features."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.asd_model = TalkNetModel(dtype=self.compute_dtype)
+
+    def features(self, video, video_asd, audio, audio_asd):
+        return self.asd_model(audio_asd, video_asd)[0]
+
+
+@MODEL_REGISTRY.register(name="LAM2ASD")
+class LAM2ASD(_FrameBaseline):
+    """Frozen LAM trunk's per-frame tokens."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.lam_model = LAMBackbone(dtype=self.compute_dtype)
+
+    def features(self, video, video_asd, audio, audio_asd):
+        return self.lam_model(normalize_u8_frames(video, self.compute_dtype))
+
+
+@MODEL_REGISTRY.register(name="TTM2ASD")
+class TTM2ASD(_FrameBaseline):
+    """Frozen TTM video trunk's per-frame tokens."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.ttm_model = TTMBackbone(dtype=self.compute_dtype)
+
+    def features(self, video, video_asd, audio, audio_asd):
+        return self.ttm_model(normalize_u8_frames(video, self.compute_dtype),
+                              audio)

@@ -1,6 +1,7 @@
-"""Card tests: the hand-written CUDA stem kernels against their plain
-versions, the int8 conv's ``torch._int_mm`` route against its exact plain
-version, and small flagships (float and int8) on the card against the CPU.
+"""Card tests: the hand-written CUDA stem and flash-attention kernels
+against their plain versions, the int8 conv's ``torch._int_mm`` route
+against its exact plain version, the attention route on the card, and
+small flagships (float and int8) on the card against the CPU.
 
 Marked ``cuda``; each test skips when the process sees no CUDA card. This
 file imports neither JAX nor the JAX package, so on a machine without JAX
@@ -17,7 +18,9 @@ bf16 kernel vs the plain f32 version of the same bf16-rounded inputs,
 rtol = atol = 1e-2 (the kernel rounds its f32 result to bf16 once: 2^-8
 relative). int8 stems: |diff| <= 1 quantum everywhere and >= 99.9% equal
 (the f32 conv sums in another order than cuDNN, so a value within one
-rounding of a half-integer flips). int8 conv: bit for bit.
+rounding of a half-integer flips). int8 conv: bit for bit. Flash kernel vs
+its plain version on the same inputs: f32 rtol 1e-4, atol 1e-5 as
+tests/test_pallas_attention.py holds the Pallas kernel; bf16 1e-2.
 """
 
 import numpy as np
@@ -25,7 +28,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from egot2x_torch.ops import int8, stem  # noqa: E402
+from egot2x_torch.ops import attention, flash, int8, stem  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -262,3 +265,65 @@ def test_int8_flagship_on_card_matches_cpu(cuda):
     assert bool(torch.isfinite(got).all())
     bound = 5e-2 * (1 + float(want.abs().max()))
     assert float((got - want).abs().max()) <= bound
+
+
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+             torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 40, 64, 128])
+@pytest.mark.parametrize("bh, n, s", [(2, 257, 130), (3, 65, 333),
+                                      (1, 1, 1), (8, 2048, 2048)])
+def test_flash_kernel_matches_plain(cuda, dtype, d, bh, n, s):
+    rng = np.random.default_rng(d + n)
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, m, d))
+                                .astype(np.float32)).to(cuda).to(dtype)
+               for m in (n, s, s))
+    before = flash.flash_attention.launches
+    out = flash.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = flash.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("d", [16, 32])
+def test_flash_kernel_reads_the_heads_last_layout(cuda, d):
+    """(B, N, H, D) views of one packed projection, as the port's MHA
+    hands them over, read in place."""
+    rng = np.random.default_rng(d)
+    qkv = torch.from_numpy(rng.standard_normal((2, 300, 3, 8, d))
+                           .astype(np.float32)).to(cuda)
+    q, k, v = qkv.unbind(2)   # strided: row stride 3 * 8 * d
+    out = flash.flash_attention(q, k, v)
+    assert out.shape == (2, 300, 8, d) and out.is_contiguous()
+    torch.testing.assert_close(out, flash.flash_attention_plain(q, k, v),
+                               **FLASH_TOL[torch.float32])
+
+
+def test_flash_route_on_the_card(cuda):
+    """At 2048 queries and keys attention launches the kernel once; at
+    2047 it takes the plain path; both agree."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((1, 2048, 8, 16))
+                         .astype(np.float32)).to(cuda)
+    before = flash.flash_attention.launches
+    routed = attention.dot_product_attention(x, x, x)
+    assert flash.flash_attention.launches == before + 1
+    attention.dot_product_attention(x[:, :2047], x, x)
+    assert flash.flash_attention.launches == before + 1
+    torch.testing.assert_close(routed, flash.flash_attention_plain(x, x, x),
+                               **FLASH_TOL[torch.float32])
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(2, 64, 16, device=cuda)
+    with pytest.raises(TypeError):
+        flash.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):
+        big = torch.zeros(2, 64, 160, device=cuda)
+        flash.flash_attention(big, big, big)
+    with pytest.raises(ValueError):
+        flash.flash_attention(q, q.cpu(), q)
