@@ -15,14 +15,16 @@ Phases, each printing one line or more:
               at the main paths' shapes: the float stems (f32, bf16) and the
               int8 stems (2D with 1 and 2 trunks stacked, 3D; f32 and bf16
               input), with its time beside the plain version's, a library
-              yardstick's and the card's bound for the same work;
+              yardstick's and the card's bound for the same work, and its
+              ``design`` (CUDA-core f32, or mma.sync for the bf16 int8 stems);
   4. int8conv the int8 conv (im2col + ``torch._int_mm``) against its exact
               plain version at a layer1 and a layer4 shape, bit for bit;
-     flash    the flash-attention kernel against its plain version at
-              TalkNet's shapes on a 2048-frame track ((8, 2048, 16) and
-              (8, 2048, 32)) and the JAX oracle's odd (2, 257, 40) over 130
-              keys, f32 and bf16, with its time beside the plain version's,
-              ``scaled_dot_product_attention``'s and the card's bound;
+     flash    the flash-attention kernel (mma.sync: bf16, or 3xTF32 for f32)
+              against its plain version at TalkNet's shapes on a 2048-frame
+              track ((8, 2048, 16) and (8, 2048, 32)) and the JAX oracle's
+              odd (2, 257, 40) over 130 keys, f32 and bf16, with its time
+              beside the plain version's, ``scaled_dot_product_attention``'s
+              and the card's bound;
   5. slice    the float flagship ``TaskFusionMFTransformer3Task`` at the
               released widths (hidden 128, 1 layer, 4 heads, FFN 2048;
               ResNet-18 at 224^2, TalkNet at 112^2, f32) built by
@@ -57,6 +59,12 @@ Then one JSON line of every kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Float32 runs in full f32 throughout: TF32 is off for cuDNN and for
 matmuls, so the card and the CPU compute the same function.
+
+Bounds: the larger of the bytes (each input read once, each output
+written once) at HBM bandwidth and the operations at the card's peak for
+their type, f32 products counted at the TF32 tensor-core rate (one pass),
+the least time the card could take; f32 rows also give the CUDA cores'
+rate as ``bound_cuda_core_ms``.
 """
 
 import contextlib
@@ -71,9 +79,13 @@ B, T, IMG, ASD_IMG = 16, 30, 224, 112   # one request: 16 clips of 30 frames
 REQUESTS = 3
 HIDDEN, LAYERS, HEADS = 128, 1, 4        # released flagship (bench.py)
 SEED = 0
-# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W). f32 products count
+# at the TF32 tensor-core rate, one pass: the least time the card could
+# take; the f32 CUDA cores' 67 TFLOP/s is reported beside it as
+# bound_cuda_core_ms
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+PEAK_FLOPS = {"float32": 495e12, "bfloat16": 989e12, "int8": 1979e12}
+F32_CUDA_CORE_FLOPS = 67e12
 # kernel vs plain: f32 as tests/test_pallas_stem.py holds the Pallas kernel;
 # bf16 output is one rounding of the f32 result (2^-8 relative)
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -95,6 +107,7 @@ SOURCES = ("stem_pool", "flash_attention")   # egot2x_torch/csrc/<name>.cu
 FLASH_SHAPES = [("cross", 8, 2048, 2048, 16), ("self_av", 8, 2048, 2048, 32),
                 ("oracle", 2, 257, 130, 40)]
 FLASH_PER_FORWARD = {"cross": 2, "self_av": 1}   # launches on the track
+FLASH_ITERS = 50   # launches a graph replays to time a row
 # kernel vs plain: f32 as tests/test_pallas_attention.py:27 holds the Pallas
 # kernel; bf16 output is one rounding of the f32 result
 FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-2)}  # rtol, atol
@@ -130,6 +143,33 @@ def time_ms(fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters):
+    """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
+    graph and replayed: for launches shorter than their host-side cost
+    (a Python wrapper, ctypes), back-to-back calls time the host, not the
+    card."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def device_phase():
     import torch
 
@@ -145,16 +185,21 @@ def device_phase():
 
 
 def _kernel_label(mangled):
-    """'stem_pool_q_kernel<bf16,2d,n2>' or 'flash_attention_kernel<f32,
-    dpt16,g1>' from a mangled instance name."""
+    """'stem_pool_q_kernel<f32,2d,n2>', 'stem_pool_q_tc_kernel<bf16,2d,n2>'
+    or 'flash_attention_kernel<f32,d16>' from a mangled instance name."""
     import re
 
-    m = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+    m = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)E",
                   mangled)
     if m:
-        dtype, dpt, g = m.groups()
+        dtype, dp = m.groups()
         return (f"flash_attention_kernel<{'f32' if dtype == 'f' else 'bf16'},"
-                f"dpt{dpt},g{g}>")
+                f"d{dp}>")
+    m = re.search(r"stem_pool_q_tc_kernelILi(\d+)ELi\d+ELi(\d+)E", mangled)
+    if m:
+        kt, ng = m.groups()
+        return (f"stem_pool_q_tc_kernel<bf16,{'2d' if kt == '1' else '3d'},"
+                f"n{ng}>")
     m = re.search(r"(stem_pool(?:_q)?_kernel)I(f|13__nv_bfloat16)"
                   r"((?:Li\d+E)+)E", mangled)
     if not m:
@@ -188,6 +233,8 @@ def build_phase():
     """Every kernel source built at once, one nvcc each."""
     from concurrent.futures import ThreadPoolExecutor
 
+    import torch
+
     from egot2x_torch.ops import build, flash, stem
 
     t0 = time.perf_counter()
@@ -195,8 +242,11 @@ def build_phase():
         built = list(pool.map(build.build, SOURCES))
     wall = time.perf_counter() - t0
     smem = {"stem_pool": stem.kernel_smem_bytes(),
-            "flash_attention": {f"d{d}": flash.kernel_smem_bytes(d)
-                                for d in (16, 32, 40, 64, 128)}}
+            "flash_attention": {
+                f"{name}_d{d}": flash.kernel_smem_bytes(d, dtype)
+                for name, dtype in (("f32", torch.float32),
+                                    ("bf16", torch.bfloat16))
+                for d in (16, 32, 40, 64, 128)}}
     for b in built:
         report = _ptxas_report(b.log)
         phase("build", source=f"egot2x_torch/csrc/{b.name}.cu",
@@ -241,6 +291,27 @@ def _stem_params(kind, trunks=1):
         parts.append((torch.from_numpy(w),) + stem.fold_bn(
             *(torch.tensor(v) for v in bn), 1e-5 if kind == "2d" else 1e-3))
     return [torch.cat(p).float().cuda() for p in zip(*parts)]
+
+
+# how each kernel computes, by input type
+DESIGNS = {
+    ("stem_pool", "float32"): "CUDA-core f32",
+    ("stem_pool", "bfloat16"): "CUDA-core f32",
+    ("stem_pool_q", "float32"): "CUDA-core f32",
+    ("stem_pool_q", "bfloat16"):
+        "mma.sync m16n8k16 bf16, weights as bf16 hi + lo (2 passes)",
+    ("flash_attention", "float32"): "mma.sync m16n8k8 3xTF32",
+    ("flash_attention", "bfloat16"): "mma.sync m16n8k16 bf16",
+}
+
+
+def _design(kernel, dtype, flops):
+    """The kernel's ``design``, and for f32 input the operations' time at
+    the f32 CUDA cores' rate (the bound before the tensor cores)."""
+    out = {"design": DESIGNS[kernel, dtype]}
+    if dtype == "float32":
+        out["bound_cuda_core_ms"] = flops / F32_CUDA_CORE_FLOPS * 1e3
+    return out
 
 
 def _in_image_taps(n, k, stride, pad):
@@ -336,6 +407,7 @@ def kernel_phase():
                 library_ms=time_ms(_library_call(kind, x, w, scale, bias)))
             (row["bound_ms"], row["bound_by"], row["flops"],
              row["bytes"]) = _bound(kind, x, out)
+            row.update(_design("stem_pool", dtype, row["flops"]))
             phase("kernel", **row)
             if not ok:
                 fail(f"stem_pool_{kind} {dtype} disagrees with its plain "
@@ -387,6 +459,7 @@ def kernel_q_phase():
                                                  steps)))
             (row["bound_ms"], row["bound_by"], row["flops"],
              row["bytes"]) = _bound(kind, x, out)
+            row.update(_design("stem_pool_q", dtype, row["flops"]))
             phase("kernel_q", **row)
             if row["max_abs_err"] > 1 or share < INT8_SHARE_EQUAL:
                 fail(f"stem_pool_q_{kind} n={n} {dtype} disagrees with its "
@@ -467,7 +540,9 @@ def flash_phase():
     """The flash kernel vs its plain version, f32 and bf16, at TalkNet's
     track shapes and the JAX oracle's odd shape; returns the rows per
     (shape name, dtype). The yardstick is ``scaled_dot_product_attention``
-    on (1, BH, N, D) views: its fused backends take 4-D input only."""
+    on (1, BH, N, D) views: its fused backends take 4-D input only. All
+    three are timed by graph replay (``graph_ms``): a launch takes tens of
+    microseconds, no more than the wrapper's host-side cost."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -492,12 +567,15 @@ def flash_phase():
                 kernel="flash_attention", shape_name=name, dtype=dtype,
                 q=list(q.shape), k=list(k.shape), max_abs_err=float(err.max()),
                 rtol=rtol, atol=atol, ok=ok,
-                ms=time_ms(lambda: flash.flash_attention(q, k, v)),
-                plain_ms=time_ms(lambda: flash.flash_attention_plain(q, k, v)),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    *(x.unsqueeze(0) for x in (q, k, v)))))
+                ms=graph_ms(lambda: flash.flash_attention(q, k, v),
+                            FLASH_ITERS),
+                plain_ms=graph_ms(lambda: flash.flash_attention_plain(q, k, v),
+                                  FLASH_ITERS),
+                library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                    *(x.unsqueeze(0) for x in (q, k, v))), FLASH_ITERS))
             (row["bound_ms"], row["bound_by"], row["bound_detail"],
              row["flops"], row["exps"], row["bytes"]) = _flash_bound(q, k, out)
+            row.update(_design("flash_attention", dtype, row["flops"]))
             phase("flash", **row)
             if not ok:
                 fail(f"flash_attention {name} {dtype} disagrees with its "
@@ -520,6 +598,7 @@ def _flash_line_row(rows, counts):
     return dict(name="flash_attention", route="cuda",
                 source="egot2x_torch/csrc/flash_attention.cu",
                 replaces="egot2x/ops/pallas_attention.py:77", dtype="float32",
+                design=DESIGNS["flash_attention", "float32"],
                 shapes="mean per launch of one 2048-frame TalkNet forward: "
                        "2 x (8, 2048, 16), 1 x (8, 2048, 32)",
                 launches=counts["flash_attention"],
@@ -896,6 +975,7 @@ def _line_row(name, row, counts, replaces, route="cuda",
               source="egot2x_torch/csrc/stem_pool.cu"):
     return dict(name=name, route=route, source=source, replaces=replaces,
                 dtype=str(row.get("dtype", "int8")),
+                design=row.get("design", "im2col + torch._int_mm"),
                 launches=counts[name], max_abs_err=row["max_abs_err"],
                 ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],

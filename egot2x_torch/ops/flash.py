@@ -14,9 +14,10 @@ Two layouts, one function:
   multi-head layout, which the kernel reads in place through strides.
 
 f32 or bf16 in, f32 logits, max, sum and accumulator, output in q's
-dtype; any N, S >= 1 and D <= 128. The kernel is bound by its operations
-(the dot products, and at small D the exponentials as much); what its
-design does about that is in its source note.
+dtype; any N, S >= 1 and D <= 128. The kernel runs both products on the
+tensor cores (``mma.sync``: bf16 input as it is, f32 input as 3xTF32,
+which holds the f32 gate); its bound is the exponentials. What its design
+does about that is in its source note.
 
 ``flash_attention.launches`` counts kernel launches (CPU calls do not
 count), so a run can show that its attention went through the kernel.
@@ -56,15 +57,15 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
         + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
     lib.egot2x_flash_attention_smem_bytes.restype = ctypes.c_int
-    lib.egot2x_flash_attention_smem_bytes.argtypes = [ctypes.c_int]
+    lib.egot2x_flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.egot2x_flash_error_string.restype = ctypes.c_char_p
     lib.egot2x_flash_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
-def kernel_smem_bytes(d: int) -> int:
+def kernel_smem_bytes(d: int, dtype=torch.float32) -> int:
     """Dynamic shared memory of one block at head dim ``d``, bytes."""
-    return _library().egot2x_flash_attention_smem_bytes(d)
+    return _library().egot2x_flash_attention_smem_bytes(d, _DTYPES[dtype])
 
 
 def _geometry(q, k, v):

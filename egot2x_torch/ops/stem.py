@@ -18,7 +18,11 @@ Float (``fused_stem_pool``):
 int8 (``fused_stem_pool_q``), for the static-PTQ path: the same conv, BN
 and ReLU, then ``quantize_static`` with each trunk's step ``s`` and an
 int8 max-pool (quantizing before the pool is exact: max commutes with the
-monotonic quantizer), so only the pooled int8 map is written.
+monotonic quantizer), so only the pooled int8 map is written. bf16 input
+(the int8 path's) runs on the tensor cores: the f32 weights split into
+bf16 ``w_hi + w_lo`` (``split_bf16``), laid out as the kernel's MMA
+fragments (``weight_fragments``) once per loaded weight; f32 input runs
+on the CUDA cores.
 
 * ``stem_pool_q_2d``: n = 1 or 2 trunks stacked on the output channels in
   one launch that reads the frames once (the fused LAM + TTM stem) ->
@@ -27,10 +31,9 @@ monotonic quantizer), so only the pooled int8 map is written.
 
 What bounds the kernels on an H100, and what their design does about it,
 is in the kernel's source note. In short: they are compute-bound (1.12
-TFLOP per 2D trunk at 4800 frames of 224^2, ~16.7 ms at the 67 TFLOP/s of
-the f32 CUDA cores), so they keep the pre-pool conv map in shared memory
-and spend their device-memory traffic on the input once and the pooled
-output once.
+TFLOP per 2D trunk at 4800 frames of 224^2), so they keep the pre-pool
+conv map in shared memory and spend their device-memory traffic on the
+input once and the pooled output once.
 
 Each wrapper counts its kernel launches in ``.launches`` (CPU calls do not
 count), so a run can show that its stems went through the kernel.
@@ -121,6 +124,62 @@ def stem_pool_q_3d_plain(x, weight, scale, bias, qscale):
                        bias.float(), qscale)
 
 
+def split_bf16(w):
+    """f32 ``w`` as bf16 ``(hi, lo)``: hi = bf16(w), lo = bf16(w - hi), so
+    hi + lo is w to ~2^-16 relative. The tensor-core int8 stem multiplies
+    the same exact bf16 input by both parts and sums in f32."""
+    hi = w.float().to(torch.bfloat16)
+    return hi, (w.float() - hi.float()).to(torch.bfloat16)
+
+
+def weight_fragments(w_taps):
+    """(n, KT, 7, 7, CIN, 64) f32 taps -> the tensor-core kernel's bf16
+    weights (n, k-steps, 8, 32, 8): per trunk, k-step s, n-tile nt and
+    lane 4 g + t, the B fragments of ``mma.m16n8k16`` for channel 8 nt + g
+    as [hi(k0), hi(k0 + 1), hi(k0 + 8), hi(k0 + 9), lo(same four)] with
+    k0 = 16 s + 2 t. K is (kt, kh) runs of (kw, ci), each run padded with
+    zero taps to 24 (2D) or 8 (3D), then to whole k-steps."""
+    ng, kt, _, _, cin, cout = w_taps.shape
+    runs, taps, run = kt * 7, 7 * cin, 24 if cin == 3 else 8
+    ksteps = (runs * run + 15) // 16
+    b = w_taps.float().reshape(ng, runs, taps, cout)
+    b = F.pad(b, (0, 0, 0, run - taps)).reshape(ng, runs * run, cout)
+    b = F.pad(b, (0, 0, 0, 16 * ksteps - runs * run))
+    parts = []
+    for part in split_bf16(b):
+        # k = 16 s + 8 half + 2 t + pair, n = 8 nt + g
+        p = part.reshape(ng, ksteps, 2, 4, 2, 8, 8)
+        parts.append(p.permute(0, 1, 5, 6, 3, 2, 4))  # (.., nt, g, t, half, pair)
+    frags = torch.stack(parts, dim=-3)                # (.., t, part, half, pair)
+    return frags.reshape(ng, ksteps, 8, 32, 8).contiguous()
+
+
+_PREPARED = {}      # (x dtype, weight key) -> (weight, kernel weights)
+_PREPARED_MAX = 16
+
+
+def _kernel_weights(kind, w_taps, dtype):
+    """The int8 kernel's weights for input ``dtype`` from the taps of
+    ``_launch_q`` (2D (n, 7, 7, 3, 64), 3D (1, 5, 7, 7, 64)), made once per
+    loaded weight: the cache is keyed on the weight's storage, version
+    counter and view, and holds the weight, so that a key cannot come back
+    for another tensor."""
+    key = (dtype, w_taps.data_ptr(), w_taps._version, w_taps.device,
+           tuple(w_taps.shape), w_taps.stride())
+    hit = _PREPARED.get(key)
+    if hit is None:
+        kt, cin = (1, 3) if kind == 2 else (5, 1)
+        with torch.no_grad():
+            prepared = (weight_fragments(w_taps.reshape(
+                            w_taps.shape[0], kt, 7, 7, cin, 64))
+                        if dtype == torch.bfloat16
+                        else w_taps.float().contiguous())
+        if len(_PREPARED) >= _PREPARED_MAX:
+            _PREPARED.pop(next(iter(_PREPARED)))
+        hit = _PREPARED[key] = (w_taps, prepared)
+    return hit[1]
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load("stem_pool")
@@ -134,15 +193,21 @@ def _library() -> ctypes.CDLL:
     lib.egot2x_cuda_error_string.restype = ctypes.c_char_p
     lib.egot2x_cuda_error_string.argtypes = [ctypes.c_int]
     lib.egot2x_stem_pool_smem_bytes.restype = ctypes.c_int
-    lib.egot2x_stem_pool_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.egot2x_stem_pool_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.egot2x_stem_pool_q_fragment_elems.restype = ctypes.c_int
+    lib.egot2x_stem_pool_q_fragment_elems.argtypes = [ctypes.c_int]
     return lib
 
 
 def kernel_smem_bytes() -> dict:
-    """Dynamic shared memory of one block of each stem kernel, bytes."""
+    """Dynamic shared memory of one block of each stem kernel, bytes: the
+    float kernel, the int8 kernel for f32 input and the tensor-core int8
+    kernel for bf16 input."""
     smem = _library().egot2x_stem_pool_smem_bytes
-    return {"2d": smem(2, 0), "3d": smem(3, 0), "q_2d_n1": smem(2, 1),
-            "q_2d_n2": smem(2, 2), "q_3d": smem(3, 1)}
+    return {"2d": smem(2, 0, 0), "3d": smem(3, 0, 0),
+            "q_2d_n1": smem(2, 1, 0), "q_2d_n2": smem(2, 2, 0),
+            "q_3d": smem(3, 1, 0), "q_tc_2d_n1": smem(2, 1, 1),
+            "q_tc_2d_n2": smem(2, 2, 1), "q_tc_3d": smem(3, 1, 1)}
 
 
 def _check_inputs(x, channels, **params):
@@ -192,12 +257,16 @@ def _launch_q(kind, x, w_taps, scale, bias, qscale, b, t, h, w):
     if qscale.shape != (ng,):
         raise ValueError(f"qscale must be ({ng},), got {tuple(qscale.shape)}")
     lib = _library()
-    w_taps, scale, bias, qscale = _f32(w_taps, scale, bias, qscale)
+    w_kernel = _kernel_weights(kind, w_taps, x.dtype)
+    if (x.dtype == torch.bfloat16 and w_kernel.numel()
+            != ng * lib.egot2x_stem_pool_q_fragment_elems(kind)):
+        raise RuntimeError("weight fragments disagree with the kernel's K")
+    scale, bias, qscale = _f32(scale, bias, qscale)
     out = torch.empty((b * t, pooled_size(h), pooled_size(w), 64 * ng),
                       dtype=torch.int8, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.egot2x_stem_pool_q(
-            x.data_ptr(), w_taps.data_ptr(), scale.data_ptr(),
+            x.data_ptr(), w_kernel.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), qscale.data_ptr(), out.data_ptr(), kind,
             _DTYPES[x.dtype], ng, b, t, h, w,
             torch.cuda.current_stream(x.device).cuda_stream)

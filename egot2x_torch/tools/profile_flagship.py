@@ -52,7 +52,7 @@ def _category(name: str) -> str:
     n = name.lower()
     if "flash_attention_kernel" in n:
         return "flash attention kernel (ours)"
-    if "stem_pool_q_kernel" in n:
+    if "stem_pool_q_kernel" in n or "stem_pool_q_tc_kernel" in n:
         return "int8 stem kernel (ours)"
     if "stem_pool_kernel" in n:
         return "stem kernel (ours)"

@@ -155,8 +155,11 @@ def _assert_int8_close(got, want):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [1, 2])
-@pytest.mark.parametrize("shape", [(3, 224, 224), (2, 70, 90), (1, 9, 17)])
+@pytest.mark.parametrize("shape", [(3, 224, 224), (2, 70, 90), (1, 9, 17),
+                                   (2, 200, 168), (5, 112, 112)])
 def test_stem_pool_q_2d_kernel_matches_plain(cuda, dtype, n, shape):
+    """bf16 input takes the tensor-core kernel, f32 the CUDA-core one;
+    200 x 168 is no whole number of 7 x 7 pooled tiles."""
     rng = np.random.default_rng(4)
     b, h, w = shape
     x = torch.from_numpy(rng.standard_normal((b, h, w, 3)).astype(np.float32))
@@ -173,7 +176,8 @@ def test_stem_pool_q_2d_kernel_matches_plain(cuda, dtype, n, shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 6, 112, 112), (3, 2, 40, 52),
-                                   (1, 1, 16, 16)])
+                                   (1, 1, 16, 16), (1, 2, 224, 224),
+                                   (1, 3, 200, 168), (5, 4, 112, 112)])
 def test_stem_pool_q_3d_kernel_matches_plain(cuda, dtype, shape):
     """Clips of 1 and 2 frames take the per-sample temporal pad."""
     rng = np.random.default_rng(5)
@@ -327,3 +331,37 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         flash.flash_attention(big, big, big)
     with pytest.raises(ValueError):
         flash.flash_attention(q, q.cpu(), q)
+
+
+def _flash_inputs(rng, layout, n, s, d, dtype, device):
+    """q (.., n, .., d), k, v (.., s, .., d): contiguous (BH 3) or the
+    heads-last views of packed tensors (2 heads), read in place."""
+    def draw(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device).to(dtype)
+    if layout == "bhnd":
+        return draw((3, n, d)), draw((3, s, d)), draw((3, s, d))
+    q = draw((1, n, 2, d + 3))[..., :d]      # row and head strides off 16 B
+    k, v = draw((1, s, 2, 2, d)).unbind(2)   # row stride 4 d
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["bhnd", "heads_last"])
+@pytest.mark.parametrize("d", [1, 8, 16, 24, 32, 40, 64, 100, 128])
+@pytest.mark.parametrize("n, s", [(1, 2049), (17, 1), (2047, 17),
+                                  (2049, 2047)])
+def test_flash_kernel_tiles_match_plain(cuda, dtype, layout, d, n, s):
+    """Every padded head-dim tile (D to the MMA k-step: 8 for f32, 16 for
+    bf16), ragged query and key counts (a last key tile of 1 key, a
+    single query row), both layouts; K and V rows on 16 bytes take
+    cp.async, the others the staging through registers."""
+    rng = np.random.default_rng(d * 7 + n + s)
+    q, k, v = _flash_inputs(rng, layout, n, s, d, dtype, cuda)
+    before = flash.flash_attention.launches
+    out = flash.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = flash.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), want.float(), **FLASH_TOL[dtype])
