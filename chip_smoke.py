@@ -16,7 +16,8 @@ Phases, each printing one line or more:
               int8 stems (2D with 1 and 2 trunks stacked, 3D; f32 and bf16
               input), with its time beside the plain version's, a library
               yardstick's and the card's bound for the same work, and its
-              ``design`` (CUDA-core f32, or mma.sync for the bf16 int8 stems);
+              ``design`` (mma.sync: 3xFP16 for f32 input, bf16 with the
+              weights as bf16 hi + lo for bf16 input);
   4. int8conv the int8 conv (im2col + ``torch._int_mm``) against its exact
               plain version at a layer1 and a layer4 shape, bit for bit;
      flash    the flash-attention kernel (mma.sync: bf16, or 3xTF32 for f32)
@@ -185,8 +186,8 @@ def device_phase():
 
 
 def _kernel_label(mangled):
-    """'stem_pool_q_kernel<f32,2d,n2>', 'stem_pool_q_tc_kernel<bf16,2d,n2>'
-    or 'flash_attention_kernel<f32,d16>' from a mangled instance name."""
+    """'stem_pool_tc_kernel<f32->int8,2d,n2>' or
+    'flash_attention_kernel<f32,d16>' from a mangled instance name."""
     import re
 
     m = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)E",
@@ -195,19 +196,14 @@ def _kernel_label(mangled):
         dtype, dp = m.groups()
         return (f"flash_attention_kernel<{'f32' if dtype == 'f' else 'bf16'},"
                 f"d{dp}>")
-    m = re.search(r"stem_pool_q_tc_kernelILi(\d+)ELi\d+ELi(\d+)E", mangled)
-    if m:
-        kt, ng = m.groups()
-        return (f"stem_pool_q_tc_kernel<bf16,{'2d' if kt == '1' else '3d'},"
-                f"n{ng}>")
-    m = re.search(r"(stem_pool(?:_q)?_kernel)I(f|13__nv_bfloat16)"
-                  r"((?:Li\d+E)+)E", mangled)
+    m = re.search(r"stem_pool_tc_kernelILi(\d+)ELi\d+ELi(\d+)ELb([01])E"
+                  r"(f|13__nv_bfloat16|a)E", mangled)
     if not m:
         return mangled
-    kind, dtype, args = m.groups()
-    kt, _, *ng = [int(v) for v in re.findall(r"Li(\d+)E", args)]
-    return (f"{kind}<{'f32' if dtype == 'f' else 'bf16'},"
-            f"{'2d' if kt == 1 else '3d'}{''.join(f',n{g}' for g in ng)}>")
+    kt, ng, f32_in, out = m.groups()
+    out = {"f": "f32", "a": "int8"}.get(out, "bf16")
+    return (f"stem_pool_tc_kernel<{'f32' if f32_in == '1' else 'bf16'}->"
+            f"{out},{'2d' if kt == '1' else '3d'},n{ng}>")
 
 
 def _ptxas_report(log):
@@ -294,12 +290,14 @@ def _stem_params(kind, trunks=1):
 
 
 # how each kernel computes, by input type
+STEM_F32 = ("mma.sync m16n8k16 3xFP16: x and w scaled by powers of two, "
+            "fp16 hi + lo, 3 passes")
+STEM_BF16 = "mma.sync m16n8k16 bf16, weights as bf16 hi + lo (2 passes)"
 DESIGNS = {
-    ("stem_pool", "float32"): "CUDA-core f32",
-    ("stem_pool", "bfloat16"): "CUDA-core f32",
-    ("stem_pool_q", "float32"): "CUDA-core f32",
-    ("stem_pool_q", "bfloat16"):
-        "mma.sync m16n8k16 bf16, weights as bf16 hi + lo (2 passes)",
+    ("stem_pool", "float32"): STEM_F32,
+    ("stem_pool", "bfloat16"): STEM_BF16,
+    ("stem_pool_q", "float32"): STEM_F32,
+    ("stem_pool_q", "bfloat16"): STEM_BF16,
     ("flash_attention", "float32"): "mma.sync m16n8k8 3xTF32",
     ("flash_attention", "bfloat16"): "mma.sync m16n8k16 bf16",
 }

@@ -1,69 +1,116 @@
 // Fused stems for Hopper: stride-2 conv + folded eval-BN + ReLU + 3x3/2
-// pad-1 max-pool, writing only the pooled map. Three kernels:
+// pad-1 max-pool, writing only the pooled map. One kernel design,
+// stem_pool_tc_kernel, an implicit GEMM on the tensor cores (mma.sync), for
+// both TPU stem kernels and both input types:
 //
-//   stem_pool_kernel       float output. Replaces the TPU kernel
-//                          egot2x/ops/pallas_stem.py::fused_stem_pool
-//                          (:232, body _stem_kernel). f32 FMAs on the CUDA
-//                          cores.
-//   stem_pool_q_kernel     int8 output, f32 input: q = min(rint(relu(acc *
-//                          scale + bias) / s), 127) per channel, then an
-//                          integer 3x3/2 max-pool. Replaces
-//                          egot2x/ops/pallas_stem.py::fused_stem_pool_q
-//                          (:351, body _stem_kernel_q). NG trunks of 64
-//                          channels stack in one launch (the fused LAM+TTM
-//                          stem, NG = 2): the frames are read once and each
-//                          trunk's channels use their own BN and step s.
-//                          Shares the float kernel's staging and conv body.
-//   stem_pool_q_tc_kernel  the same function for bf16 input (the int8
-//                          path's), on the tensor cores: see its section.
+//   float output  replaces egot2x/ops/pallas_stem.py::fused_stem_pool
+//                 (:232, body _stem_kernel): scale, bias, ReLU, pool; the
+//                 output in the input's dtype (f32 or bf16).
+//   int8 output   replaces egot2x/ops/pallas_stem.py::fused_stem_pool_q
+//                 (:351, body _stem_kernel_q): q = min(rint(relu(acc *
+//                 scale + bias) / s), 127) per channel, then an integer
+//                 3x3/2 max-pool. NG trunks of 64 channels stack in one
+//                 launch (the fused LAM+TTM stem, NG = 2): the frames are
+//                 read once and each trunk's channels use their own BN and
+//                 step s.
 //
-// Geometries (each kernel instantiates both):
+// Geometries (every variant instantiates both):
 //   2D  ResNet-18 conv1: (N, H, W, 3) NHWC, 7x7/2 pad 3, 3 -> 64 channels;
 //   3D  TalkNet frontend3D: (B, T, H, W) grey, 5x7x7 stride (1,2,2),
 //       temporal zero-pad 2 applied per sample (frames of one clip never
 //       see frames of the next).
-// Output (frames, ceil(ceil(H/2)/2), ceil(ceil(W/2)/2), 64*NG) NHWC: the
-// input's dtype (float kernel) or int8 with values in [0, 127]. f32 or
-// bf16 in, f32 accumulation, f32 weights (split into two exact bf16 parts
-// on the tensor cores).
+// Output (frames, ceil(ceil(H/2)/2), ceil(ceil(W/2)/2), 64*NG) NHWC.
 //
-// What bounds it on an H100: at one request (480 frames of 224^2) the int8
-// 2D stem with both trunks is 223 GFLOP on in-image taps (zero-pad taps
-// need no product): 0.23 ms at the bf16 tensor-core peak (989 TFLOP/s),
-// 0.45 ms at TF32's (495), 3.33 ms on the f32 CUDA cores (67); its bytes
-// (289 MB of f32 or 145 MB of bf16 input, 193 MB of int8 output) take
-// 0.09-0.14 ms. The 3D stem is 44 GFLOP (0.044 ms bf16). So the stems are
-// bound by their operations, and on the CUDA cores by 7-15x more than on
-// the tensor cores. The design spends nothing on bytes it does not have
-// to move: the pre-pool conv map (4x the bytes of the pooled output)
-// never leaves shared memory, and each input pixel is read from device
-// memory once per tile (plus a small halo) for all stacked trunks.
+// What bounds it on an H100: at one request (480 frames of 224^2) the 2D
+// stem is 111 GFLOP a trunk on in-image taps (zero-pad taps need no
+// product): 0.11 ms at the bf16 tensor-core peak (989 TFLOP/s), 0.23 ms at
+// TF32's (495), 1.67 ms on the f32 CUDA cores (67); its bytes (289 MB of
+// f32 or 145 MB of bf16 input, 96 MB a trunk of f32 output) take
+// 0.07-0.12 ms. The 3D stem is 44 GFLOP. So the stems are bound by their
+// operations, and the design spends nothing on bytes it does not have to
+// move: the pre-pool conv map (4x the bytes of the pooled output) never
+// leaves shared memory, and each input pixel is read from device memory
+// once per tile (plus a small halo) for all stacked trunks.
 //
-// Block structure (CUDA-core kernels): a persistent block walks (frame,
-// 7x7 pooled tile) work items. For one tile it
-//   1. stages the input halo (35x35 px x C_in, x5 frames for 3D) in
-//      shared memory as f32, split into even/odd columns so the
-//      stride-2 conv reads consecutive words (no bank conflicts);
-//   2. computes the 15x15x64 conv tile (pooled rows/cols 2p-1..2p+1):
-//      each thread owns 4 pixels x 16 channels in registers, weights are
-//      warp-uniform broadcasts from shared memory;
-//   3. applies scale/bias + ReLU (and, int8, the quantizer), zeroes conv
-//      positions outside the image (exact: post-ReLU values are >= 0 and
-//      every pool window holds at least one real position) and parks the
-//      tile in shared memory: f32, or one byte per value for int8;
-//   4. max-pools 3x3/2 from shared memory and writes the 7x7x64 tile.
-// The int8 kernel runs steps 2-4 once per stacked trunk on the same
-// staged halo. The weights (<= 62.7 KB per trunk) are staged once per
-// block.
+// The implicit GEMM, per 7x7 pooled tile (a 15x15 conv tile), with
+// mma.sync m16n8k16 and f32 sums:
+//   M  the tile's conv pixels: one M-tile of 16 is one conv row (the 16th
+//      pixel is computed and dropped);
+//   N  64 channels of one trunk: 8 n-tiles;
+//   K  the taps, in runs that lie contiguous in the staged NHWC halo: 2D,
+//      per kh the 7 kw x 3 ci = 21 values of one halo row, padded to 24 (K
+//      168 -> 11 k-steps, 176); 3D, per (kt, kh) the 7 kw, padded to 8 (K
+//      280 -> 18 k-steps, 288). The padded taps have zero weights.
+// Conv pixel c of a row reads its run at halo offset 2c CIN, so the A
+// fragment's two adjacent taps are one 32-bit shared load, and the words a
+// warp loads span fewer than 32 banks: no bank conflicts, no im2col copy.
+// The weights lie in shared memory in fragment order, (k-step, n-tile,
+// lane) x [hi b0b1, hi b2b3, lo b0b1, lo b2b3]: one 16-byte load a lane
+// feeds every MMA of two M-tiles (ops/stem.py::weight_fragments lays them
+// out once per loaded weight).
+//
+// Two input kinds, one body:
+//   bf16  A = the exact bf16 frames, B = the f32 weights split into bf16
+//         w_hi + w_lo: two bf16 MMAs, sum x (w_hi + w_lo), good to ~2^-16
+//         relative a tap.
+//   f32   3xFP16: x and w scaled by powers of two and split into fp16 hi +
+//         lo; three fp16 MMAs, x_hi w_hi + x_hi w_lo + x_lo w_hi (x_lo w_lo,
+//         2^-22 of a product, is dropped). fp16 keeps TF32's 11 significant
+//         bits at the bf16 rate (one m16n8k16 instruction does twice the
+//         products of TF32's m16n8k8), and the hi + lo pair keeps 22; bf16
+//         hi + lo keeps only 16, which misses the f32 gate on raw 0-255
+//         frames (the CPU emulation in
+//         tests/test_torch_port_split_precision.py shows both).
+//         fp16's narrow exponent range is answered by powers of two, which
+//         are exact: each output channel's weights are scaled by 2^-e_w so
+//         that their max |w| lies in [2^14, 2^15) (the wrapper, once per
+//         weight), and each tile's halo by 2^-e_x from its own max |x| (the
+//         staging: a warp max, then shared memory). The epilogue multiplies
+//         by 2^(e_x + e_w), folded into the BN scale. An element far below
+//         its tile's max keeps only absolute precision, about 2^-38 of that
+//         max (fp16's smallest subnormal, 2^-24, against 2^14).
+//
+// Block structure: a persistent block of 8 warps a trunk walks (frame,
+// tile) work items; each warp owns two conv rows (mg and mg + 8) of one
+// trunk. Per tile:
+//   1. the halo (KT x 35 rows x 40 cols x CIN, zeros outside the frame, the
+//      clip and the 35 real columns) is staged: bf16 bits, 8 loads in
+//      flight a thread; or f32, every load of the thread in flight, its
+//      max, a barrier, then the fp16 hi and lo planes;
+//   2. the conv, its 11 or 18 k-steps unrolled so that the halo offsets of
+//      the K runs are constants;
+//   3. the epilogue: scale, bias, ReLU, and for int8 the divide by s, round
+//      half to even and min 127 on the FP32 pipe (see quantize); conv
+//      positions outside the image are zeroed (exact: post-ReLU values are
+//      >= 0 and every pool window holds a real position), and the tile is
+//      parked in shared memory in the output's type (rounding to bf16 is
+//      monotonic, so the pool after it gives the same values);
+//   4. the 3x3/2 max-pool from shared memory, and the 7x7 tile is written.
+// Where it lets a second block onto the SM (Layout below), the halo and the
+// conv tile share shared memory behind one more barrier a tile, so that one
+// block's staging overlaps the other's MMAs; where even that does not fit
+// (3D, f32 in, float out), the tile is parked and pooled 32 channels at a
+// time.
 //
 // The quantizer is the JAX package's quantize_static on the BN+ReLU
-// output: an IEEE f32 divide by s (no fast math) and a round half to even
-// (__float2uint_rn, as rintf, jnp.round and torch.round; roundf would
-// round half away from zero).
+// output: an IEEE f32 divide by s and a round half to even.
+//
+// Measured on an H100 (tools/ab_kernels.py against a build with every
+// instance at its one-block layout, halo and tile apart, no register cap):
+// the two-block layouts are 1.15-1.23x faster where they differ (2D f32,
+// 3D f32 and bf16 float out, 3D f32 int8 out), though the cap of 128
+// registers spills up to 104 bytes.
+// Build (nvcc -Xptxas -v, sm_90a): 128 registers every instance, 8-104
+// bytes spilled; shared memory 72,040 (bf16 in, int8 2D n = 1) to 140,416
+// bytes (f32 in, int8 2D n = 2, one block an SM). chip_smoke.py's build
+// phase reports each instance.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -72,61 +119,89 @@ constexpr int KS = 7;                    // spatial kernel edge
 constexpr int PT = 7;                    // pooled tile edge
 constexpr int CT = 2 * PT + 1;           // conv tile edge
 constexpr int IT = 2 * (CT - 1) + KS;    // input tile edge
-constexpr int ITH = (IT + 1) / 2;        // columns of one parity plane
 constexpr int NPIX = CT * CT;            // conv pixels per tile
-constexpr int PIX = 4;                   // conv pixels per thread
-constexpr int CH = 16;                   // channels per thread
-constexpr int GROUPS = 64;               // pixel groups: GROUPS * PIX >= NPIX
-constexpr int THREADS = GROUPS * (COUT / CH);
-constexpr int CSTRIDE = COUT + 4;        // padded pixel stride, f32 tile
-constexpr int QSTRIDE = COUT + 16;       // pixel stride in bytes, int8 tile
+constexpr int THREADS = 256;             // 8 warps a trunk
+// shared memory a block may take for two blocks an SM: (228 KB - 1 KB
+// reserved a block) / 2
+constexpr int SMEM_TWO_BLOCKS = (228 * 1024 - 2 * 1024) / 2;
+// f32 input: the least scaling exponent, so that 2^e_x and 2^e_w stay
+// normal f32 powers of two, and so does 2^(e_x + e_w) wherever the conv's
+// products are finite in f32 (ops/stem.py::E_MIN is the same)
+constexpr int E_MIN = -63;
 
-static_assert(GROUPS * PIX >= NPIX, "pixel groups must cover the conv tile");
-static_assert(THREADS == 256, "block shape");
-static_assert(QSTRIDE % 16 == 0, "int8 tile rows take 16-byte stores");
-
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 packed;
-  packed.x = *reinterpret_cast<uint32_t*>(&lo);
-  packed.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = packed;
-}
-
-__device__ __forceinline__ float4 max4(float4 a, float4 b) {
-  return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z),
-                     fmaxf(a.w, b.w));
-}
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 template <int KT, int CIN>
-__host__ __device__ constexpr int weight_floats() {
-  return KT * KS * KS * CIN * COUT;
-}
-template <int KT, int CIN>
-__host__ __device__ constexpr int halo_floats() {
-  return KT * IT * 2 * ITH * CIN;
-}
+struct Geo {
+  static constexpr int RUN = CIN == 3 ? 24 : 8;    // taps of a run, padded
+  static constexpr int HPR = RUN / 8;              // 8-tap halves per run
+  static constexpr int RUNS = KT * KS;             // (kt, kh) runs
+  static constexpr int KSTEPS = (RUNS * RUN + 15) / 16;
+  static constexpr int XCOLS = 40;                 // staged halo columns
+  static constexpr int XRS = XCOLS * CIN;          // halo row, 16-bit
+  static constexpr int HALO = KT * IT * XRS;       // 16-bit of one plane
+  static constexpr int WFRAG = KSTEPS * 8 * 32 * 8;  // 16-bit of one trunk
+  // the 16th pixel of a conv row (2 * 15 columns on) reads a whole run
+  static_assert(2 * 15 * CIN + RUN <= XRS, "halo row too short");
+};
 
-template <int KT, int CIN>
-constexpr int smem_bytes() {
-  return (weight_floats<KT, CIN>() + halo_floats<KT, CIN>() +
-          NPIX * CSTRIDE) * (int)sizeof(float);
-}
+// Shared memory of one instance: fragments | halo planes, conv tile | BN
+// scale and bias, steps, per-warp max. PARTS channel groups are parked and
+// pooled one after the other (float output only); ALIAS puts the conv tile
+// over the halo planes. The first of (1, apart), (1, aliased), (2,
+// aliased) that fits two blocks an SM is taken, else (1, apart) at one
+// block (and always for NG = 2, 512 threads).
+template <int KT, int CIN, int NG, bool F32IN, typename Tout>
+struct LayoutSizes {
+  using G = Geo<KT, CIN>;
+  static constexpr bool INT8 = std::is_same<Tout, int8_t>::value;
+  static constexpr int NTH = THREADS * NG;
+  static constexpr int FRAG_BYTES = NG * G::WFRAG * 2;
+  static constexpr int HALO_BYTES = (F32IN ? 2 : 1) * G::HALO * 2;
+  static constexpr int SCALAR_BYTES = (2 * NG * COUT + 2 * NG + 16) * 4;
+  static constexpr int tile_ch(int parts) {
+    return INT8 ? NG * COUT : COUT / parts;
+  }
+  // pixel stride of the parked tile, elements of Tout: 16 bytes of pad
+  // (int8) or 8 elements (float) keep its stores free of bank conflicts
+  static constexpr int cstride(int parts) {
+    return tile_ch(parts) + (INT8 ? 16 : 8);
+  }
+  static constexpr int tile_bytes(int parts) {
+    return NPIX * cstride(parts) * (int)sizeof(Tout);
+  }
+  static constexpr int region(int parts, bool alias) {
+    return alias ? cmax(HALO_BYTES, tile_bytes(parts))
+                 : HALO_BYTES + tile_bytes(parts);
+  }
+  static constexpr int bytes(int parts, bool alias) {
+    return FRAG_BYTES + SCALAR_BYTES + region(parts, alias);
+  }
+  static constexpr bool fits(int parts, bool alias) {
+    return NG == 1 && bytes(parts, alias) <= SMEM_TWO_BLOCKS;
+  }
+  // 0: (1, apart), 1: (1, aliased), 2: (2, aliased)
+  static constexpr int choice() {
+    return fits(1, false) ? 0
+           : fits(1, true) ? 1
+           : (!INT8 && fits(2, true)) ? 2 : 0;
+  }
+};
 
-template <int KT, int CIN, int NG>
-constexpr int smem_bytes_q() {
-  return (NG * weight_floats<KT, CIN>() + halo_floats<KT, CIN>()) *
-             (int)sizeof(float) + NPIX * QSTRIDE;
-}
+template <int KT, int CIN, int NG, bool F32IN, typename Tout>
+struct Layout : LayoutSizes<KT, CIN, NG, F32IN, Tout> {
+  using S = LayoutSizes<KT, CIN, NG, F32IN, Tout>;
+  static constexpr int PARTS = S::choice() == 2 ? 2 : 1;
+  static constexpr bool ALIAS = S::choice() != 0;
+  static constexpr int TILE_CH = S::tile_ch(PARTS);
+  static constexpr int CSTRIDE = S::cstride(PARTS);
+  static constexpr int REGION = S::region(PARTS, ALIAS);
+  static constexpr int BYTES = S::bytes(PARTS, ALIAS);
+  static constexpr int BLOCKS = S::fits(PARTS, ALIAS) ? 2 : 1;
+  static_assert(S::HALO_BYTES % 16 == 0 && REGION % 16 == 0, "alignment");
+  static_assert((CSTRIDE * (int)sizeof(Tout)) % 8 == 0, "tile rows");
+  static_assert(BYTES <= 232448, "shared memory of one block");
+};
 
 // Where one work item sits: frame n = b * tlen + t, pooled tile origin.
 struct Tile {
@@ -148,344 +223,40 @@ __device__ __forceinline__ Tile tile_at(int tile, int tlen, int tiles_h,
   return tc;
 }
 
-template <int KT, int CIN>
-__device__ __forceinline__ void stage_weights(float* w_s, const float* w,
-                                              int groups) {
-  const int n4 = groups * weight_floats<KT, CIN>() / 4;
-  for (int i = threadIdx.x; i < n4; i += THREADS)
-    reinterpret_cast<float4*>(w_s)[i] =
-        __ldg(reinterpret_cast<const float4*>(w) + i);
-}
-
-// this thread's conv pixels g + GROUPS*j as offsets into the parity planes:
-// conv pixel (r, c) reads input row 2r+kh, column 2c+kw, which is plane
-// kw&1, half-column c + kw/2
-template <int CIN>
-__device__ __forceinline__ void pixel_bases(int (&xbase)[PIX], int g) {
-#pragma unroll
-  for (int j = 0; j < PIX; ++j) {
-    int p = g + GROUPS * j;
-    p = p < NPIX ? p : 0;  // idle slots compute pixel 0 and never store
-    xbase[j] = (2 * (p / CT) * 2 * ITH + p % CT) * CIN;
-  }
-}
-
-// 1. input halo -> shared (zeros outside the frame and the clip)
-template <typename Tin, int KT, int CIN>
-__device__ __forceinline__ void stage_halo(float* x_s, const Tin* x,
-                                           const Tile& tc, int tlen, int h,
-                                           int wd) {
-  const int ir0 = 2 * tc.cr0 - 3, ic0 = 2 * tc.cc0 - 3;
-  for (int i = threadIdx.x; i < KT * IT * IT * CIN; i += THREADS) {
-    const int ci = i % CIN;
-    int rest = i / CIN;
-    const int col = rest % IT;
-    rest /= IT;
-    const int row = rest % IT;
-    const int kt = rest / IT;
-    const int ts = tc.t + kt - KT / 2;
-    const int hy = ir0 + row, wx = ic0 + col;
-    float v = 0.f;
-    if (ts >= 0 && ts < tlen && hy >= 0 && hy < h && wx >= 0 && wx < wd) {
-      const int64_t frame = (int64_t)tc.b * tlen + ts;
-      v = load_f32(x + (((frame * h + hy) * wd + wx) * CIN + ci));
-    }
-    x_s[(((kt * IT + row) * 2 + (col & 1)) * ITH + (col >> 1)) * CIN + ci] = v;
-  }
-}
-
-// 2. one trunk's conv tile in registers; w_s holds its (KT, 7, 7, CIN, 64)
-template <int KT, int CIN>
-__device__ __forceinline__ void conv_tile(float (&acc)[PIX][CH],
-                                          const float* x_s, const float* w_s,
-                                          const int (&xbase)[PIX], int cg) {
-#pragma unroll
-  for (int j = 0; j < PIX; ++j)
-#pragma unroll
-    for (int q = 0; q < CH; ++q) acc[j][q] = 0.f;
-
-#pragma unroll 1
-  for (int kk = 0; kk < KT * KS; ++kk) {  // (kt, kh)
-    const int kt = kk / KS, kh = kk % KS;
-    const float* xrow = x_s + (kt * IT + kh) * 2 * ITH * CIN;
-    const float* wrow = w_s + kk * KS * CIN * COUT + cg * CH;
-#pragma unroll
-    for (int kw = 0; kw < KS; ++kw) {
-#pragma unroll
-      for (int ci = 0; ci < CIN; ++ci) {
-        const int xo = ((kw & 1) * ITH + (kw >> 1)) * CIN + ci;
-        float xv[PIX];
-#pragma unroll
-        for (int j = 0; j < PIX; ++j) xv[j] = xrow[xbase[j] + xo];
-        const float4* wp =
-            reinterpret_cast<const float4*>(wrow + (kw * CIN + ci) * COUT);
-        float wv[CH];
-#pragma unroll
-        for (int q4 = 0; q4 < CH / 4; ++q4) {
-          const float4 v = wp[q4];
-          wv[4 * q4 + 0] = v.x;
-          wv[4 * q4 + 1] = v.y;
-          wv[4 * q4 + 2] = v.z;
-          wv[4 * q4 + 3] = v.w;
-        }
-#pragma unroll
-        for (int j = 0; j < PIX; ++j)
-#pragma unroll
-          for (int q = 0; q < CH; ++q)
-            acc[j][q] = fmaf(xv[j], wv[q], acc[j][q]);
-      }
-    }
-  }
-}
-
-// x: (B, T, H, W, CIN); w: (KT, 7, 7, CIN, 64) f32; out: (B*T, Ho, Wo, 64).
-template <typename Tio, int KT, int CIN>
-__global__ void __launch_bounds__(THREADS, (KT == 1 ? 2 : 1))
-stem_pool_kernel(const Tio* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ scale,
-                 const float* __restrict__ bias, Tio* __restrict__ out,
-                 int tlen, int h, int wd, int hc, int wc, int ho, int wo,
-                 int tiles_h, int tiles_w, int total_tiles) {
-  extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);
-  float* x_s = w_s + weight_floats<KT, CIN>();
-  float* c_s = x_s + halo_floats<KT, CIN>();
-
-  const int tid = threadIdx.x;
-  stage_weights<KT, CIN>(w_s, w, 1);
-  const int g = tid % GROUPS;
-  const int cg = tid / GROUPS;  // warp-uniform: weight loads broadcast
-  int xbase[PIX];
-  pixel_bases<CIN>(xbase, g);
-
-  for (int tile = blockIdx.x; tile < total_tiles; tile += gridDim.x) {
-    const Tile tc = tile_at(tile, tlen, tiles_h, tiles_w);
-    __syncthreads();  // previous tile's pool reads of c_s are done
-    stage_halo<Tio, KT, CIN>(x_s, x, tc, tlen, h, wd);
-    __syncthreads();
-
-    float acc[PIX][CH];
-    conv_tile<KT, CIN>(acc, x_s, w_s, xbase, cg);
-
-    // 3. BN + ReLU epilogue into the shared conv tile
-#pragma unroll
-    for (int q = 0; q < CH; ++q) {
-      const float s = __ldg(scale + cg * CH + q), o = __ldg(bias + cg * CH + q);
-#pragma unroll
-      for (int j = 0; j < PIX; ++j) acc[j][q] = fmaxf(fmaf(acc[j][q], s, o), 0.f);
-    }
-#pragma unroll
-    for (int j = 0; j < PIX; ++j) {
-      const int p = g + GROUPS * j;
-      if (p < NPIX) {
-        const int cr = tc.cr0 + p / CT, cc = tc.cc0 + p % CT;
-        const bool inside = cr >= 0 && cr < hc && cc >= 0 && cc < wc;
-        float* dst = c_s + p * CSTRIDE + cg * CH;
-#pragma unroll
-        for (int q4 = 0; q4 < CH / 4; ++q4) {
-          float4 v = make_float4(acc[j][4 * q4], acc[j][4 * q4 + 1],
-                                 acc[j][4 * q4 + 2], acc[j][4 * q4 + 3]);
-          if (!inside) v = make_float4(0.f, 0.f, 0.f, 0.f);
-          *reinterpret_cast<float4*>(dst + 4 * q4) = v;
-        }
-      }
-    }
-    __syncthreads();
-
-    // 4. 3x3/2 max-pool: pooled (pr, pc) reads tile rows/cols 2pr..2pr+2
-    for (int i = tid; i < PT * PT * (COUT / 4); i += THREADS) {
-      const int q4 = i % (COUT / 4);
-      const int pp = i / (COUT / 4);
-      const int pr = pp / PT, pc = pp % PT;
-      const int po = tc.po0 + pr, pcw = tc.pc0 + pc;
-      if (po >= ho || pcw >= wo) continue;
-      float4 m = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int dr = 0; dr < 3; ++dr)
-#pragma unroll
-        for (int dc = 0; dc < 3; ++dc) {
-          const int p = (2 * pr + dr) * CT + 2 * pc + dc;
-          m = max4(m, *reinterpret_cast<const float4*>(c_s + p * CSTRIDE +
-                                                       4 * q4));
-        }
-      store4(out + ((((int64_t)tc.n * ho + po) * wo + pcw) * COUT + 4 * q4),
-             m);
-    }
-  }
-}
-
-// x: (B, T, H, W, CIN); w: (NG, KT, 7, 7, CIN, 64) f32; scale, bias:
-// (64*NG,) f32; qscale: (NG,) f32, the int8 step s of each trunk;
-// out: (B*T, Ho, Wo, 64*NG) int8.
-template <typename Tin, int KT, int CIN, int NG>
-__global__ void __launch_bounds__(THREADS, 2)
-stem_pool_q_kernel(const Tin* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ scale,
-                   const float* __restrict__ bias,
-                   const float* __restrict__ qscale, int8_t* __restrict__ out,
-                   int tlen, int h, int wd, int hc, int wc, int ho, int wo,
-                   int tiles_h, int tiles_w, int total_tiles) {
-  extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);
-  float* x_s = w_s + NG * weight_floats<KT, CIN>();
-  uint8_t* c_q = reinterpret_cast<uint8_t*>(x_s + halo_floats<KT, CIN>());
-
-  const int tid = threadIdx.x;
-  stage_weights<KT, CIN>(w_s, w, NG);
-  const int g = tid % GROUPS;
-  const int cg = tid / GROUPS;
-  int xbase[PIX];
-  pixel_bases<CIN>(xbase, g);
-
-  for (int tile = blockIdx.x; tile < total_tiles; tile += gridDim.x) {
-    const Tile tc = tile_at(tile, tlen, tiles_h, tiles_w);
-    // the previous tile ended on a barrier after its last pool, so the
-    // halo and the int8 tile are free
-    stage_halo<Tin, KT, CIN>(x_s, x, tc, tlen, h, wd);
-    __syncthreads();
-
-#pragma unroll 1
-    for (int gi = 0; gi < NG; ++gi) {
-      float acc[PIX][CH];
-      conv_tile<KT, CIN>(acc, x_s, w_s + gi * weight_floats<KT, CIN>(),
-                         xbase, cg);
-
-      // 3. BN + ReLU + quantize: the quotient is >= 0, so rounding it
-      // half to even is __float2uint_rn (rintf and a conversion in one
-      // instruction), and the clip to [-127, 127] is a min with 127. The
-      // byte parks in acc's register as bits.
-      const float qs = __ldg(qscale + gi);
-      const int c0 = gi * COUT + cg * CH;
-#pragma unroll
-      for (int q = 0; q < CH; ++q) {
-        const float s = __ldg(scale + c0 + q), o = __ldg(bias + c0 + q);
-#pragma unroll
-        for (int j = 0; j < PIX; ++j)
-          acc[j][q] = __uint_as_float(min(
-              __float2uint_rn(fmaxf(fmaf(acc[j][q], s, o), 0.f) / qs), 127u));
-      }
-#pragma unroll
-      for (int j = 0; j < PIX; ++j) {
-        const int p = g + GROUPS * j;
-        if (p < NPIX) {
-          const int cr = tc.cr0 + p / CT, cc = tc.cc0 + p % CT;
-          const bool inside = cr >= 0 && cr < hc && cc >= 0 && cc < wc;
-          uint32_t word[CH / 4];
-#pragma unroll
-          for (int q4 = 0; q4 < CH / 4; ++q4) {
-            word[q4] = 0u;
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-              word[q4] |= __float_as_uint(acc[j][4 * q4 + k]) << (8 * k);
-            if (!inside) word[q4] = 0u;
-          }
-          *reinterpret_cast<uint4*>(c_q + p * QSTRIDE + cg * CH) =
-              make_uint4(word[0], word[1], word[2], word[3]);
-        }
-      }
-      __syncthreads();
-
-      // 4. 3x3/2 max-pool of the bytes, 4 channels per word (values are
-      // 0..127, so the unsigned byte max is the int8 max)
-      for (int i = tid; i < PT * PT * (COUT / 4); i += THREADS) {
-        const int q4 = i % (COUT / 4);
-        const int pp = i / (COUT / 4);
-        const int pr = pp / PT, pc = pp % PT;
-        const int po = tc.po0 + pr, pcw = tc.pc0 + pc;
-        if (po >= ho || pcw >= wo) continue;
-        uint32_t m = 0u;
-#pragma unroll
-        for (int dr = 0; dr < 3; ++dr)
-#pragma unroll
-          for (int dc = 0; dc < 3; ++dc) {
-            const int p = (2 * pr + dr) * CT + 2 * pc + dc;
-            m = __vmaxu4(m, *reinterpret_cast<const uint32_t*>(
-                                c_q + p * QSTRIDE + 4 * q4));
-          }
-        *reinterpret_cast<uint32_t*>(
-            out + (((int64_t)tc.n * ho + po) * wo + pcw) * (NG * COUT) +
-            gi * COUT + 4 * q4) = m;
-      }
-      __syncthreads();  // pool reads done before the tile is rewritten
-    }
-  }
-}
-
-// ---- The int8 stem on the tensor cores (bf16 input) ----------------------
-//
-// stem_pool_q_tc_kernel computes what stem_pool_q_kernel does, as an
-// implicit GEMM per tile with mma.sync m16n8k16 (bf16 in, f32 sums):
-//   M  the tile's conv pixels: one M-tile of 16 is one conv row of the
-//      15 x 15 tile (the 16th pixel is computed and dropped);
-//   N  64 channels of one trunk: 8 n-tiles;
-//   K  the taps, in runs that lie contiguous in the staged bf16 halo: 2D,
-//      per kh the 7 kw x 3 ci = 21 values of one NHWC halo row, padded to
-//      24 (K 168 -> 11 k-steps, 176); 3D, per (kt, kh) the 7 kw, padded to
-//      8 (K 280 -> 18 k-steps, 288). The padded taps have zero weights.
-// Conv pixel c of a row reads its run at halo offset 2c CIN, so the A
-// fragment's two adjacent taps are one 32-bit shared load, and the words a
-// warp loads span fewer than 32 banks: no bank conflicts, no im2col copy.
-// The weights are f32 in the plain version; each splits into bf16 w_hi +
-// w_lo (the wrapper does it once per weight, see ops/stem.py), and both
-// parts multiply the same exact bf16 A fragment: sum x (w_hi + w_lo), good
-// to ~2^-16 relative per tap, f32 accumulation. The weights lie in shared
-// memory in fragment order, (k-step, n-tile, lane) x [hi b0b1, hi b2b3, lo
-// b0b1, lo b2b3]: one 16-byte load per lane feeds four MMAs of two
-// M-tiles.
-// A block is 8 warps per trunk (both trunks at once for n = 2: 512
-// threads, 129 KB of shared memory, one block an SM; n = 1 and 3D: 256
-// threads, 70 / 104 KB, two blocks an SM), each warp two conv rows (mg and
-// mg + 8) of one trunk. Per tile:
-//   1. the halo is staged as bf16 bits, 8 loads in flight a thread;
-//   2. the conv, its 11 or 18 k-steps unrolled so that the halo offsets of
-//      the K runs are constants;
-//   3. the epilogue (scale, bias, ReLU, the divide by s, round half to
-//      even, min 127, zero outside the image) parks the bytes in shared
-//      memory. It runs on the FP32 pipe (see quantize): with the IEEE
-//      divide's reciprocal and the float-to-int conversion, both
-//      quarter-rate, it took longer than the MMAs;
-//   4. the integer pool runs over all trunks' channels.
-// What bounds it, from scratch builds with parts switched off on an H100:
-// the MMAs with their fragment loads (two weight passes and the K and M
-// padding make 3.2x the in-image products, and each warp reads every
-// weight fragment from shared memory: 160 bytes an MMA), then the halo
-// staging, which no other block overlaps when n = 2. wgmma, which reads B
-// once per warpgroup, is the next step.
-// Build (nvcc -Xptxas -v, sm_90a): 128 registers, the launch bound, with
-// 44 (2D) to 60 (3D) bytes spilled; shared memory 131,952 (2D, n = 2),
-// 71,976 (2D, n = 1) and 106,248 (3D) bytes a block.
-
-template <int KT, int CIN>
-struct TcGeo {
-  static constexpr int RUN = CIN == 3 ? 24 : 8;    // taps of a run, padded
-  static constexpr int HPR = RUN / 8;              // 8-tap halves per run
-  static constexpr int RUNS = KT * KS;             // (kt, kh) runs
-  static constexpr int KSTEPS = (RUNS * RUN + 15) / 16;
-  static constexpr int XCOLS = 40;                 // staged halo columns
-  static constexpr int XRS = XCOLS * CIN;          // halo row, bf16
-  static constexpr int HALO = KT * IT * XRS;       // bf16 of the halo
-  static constexpr int WFRAG = KSTEPS * 8 * 32 * 8;  // bf16 of one trunk
-  // the 16th pixel of a conv row (2 * 15 columns on) reads a whole run
-  static_assert(2 * 15 * CIN + RUN <= XRS, "halo row too short");
+// Where one tile's halo lies in x (B, T, H, W, CIN): its first input row
+// and element of a row, and the clip's first frame.
+struct HaloOrigin {
+  int t, ir0, e0;
+  int64_t clip;
 };
 
-template <int NG>
-__host__ __device__ constexpr int tc_qstride() {
-  return NG * COUT + 16;
+__device__ __forceinline__ HaloOrigin halo_origin(const Tile& tc, int tlen,
+                                                  int cin) {
+  return {tc.t, 2 * tc.cr0 - 3, (2 * tc.cc0 - 3) * cin,
+          (int64_t)tc.b * tlen};
 }
 
-template <int KT, int CIN, int NG>
-constexpr int smem_bytes_tc() {
-  using G = TcGeo<KT, CIN>;
-  return 2 * (NG * G::WFRAG + G::HALO) + NPIX * tc_qstride<NG>() +
-         (2 * NG * COUT + 2 * NG) * (int)sizeof(float);
+// halo element i (row r of KT x 35, element e of 40 x CIN): false for a
+// zero (outside the frame, the clip, the 35 real columns or the halo),
+// else its index in x
+template <int KT, int CIN>
+__device__ __forceinline__ bool halo_source(int i, const HaloOrigin& o,
+                                            int tlen, int h, int wd,
+                                            int64_t& src) {
+  using G = Geo<KT, CIN>;
+  const int r = i / G::XRS, e = i - r * G::XRS;
+  const int kt = r / IT, row = r - kt * IT;
+  const int ts = o.t + kt - KT / 2, hy = o.ir0 + row, we = o.e0 + e;
+  src = ((o.clip + ts) * h + hy) * wd * CIN + we;
+  return i < G::HALO && e < IT * CIN && ts >= 0 && ts < tlen && hy >= 0 &&
+         hy < h && we >= 0 && we < wd * CIN;
 }
 
-// halo offset (bf16) of 8-tap half h of the K axis; halves past the last
+// halo offset (16-bit) of 8-tap half h of the K axis; halves past the last
 // run have zero weights and read run 0
 template <int KT, int CIN>
 __device__ __forceinline__ int half_offset(int h) {
-  using G = TcGeo<KT, CIN>;
+  using G = Geo<KT, CIN>;
   const int run = h / G::HPR;
   return run >= G::RUNS
              ? 0
@@ -496,13 +267,35 @@ __device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// d += a b, m16n8k16, bf16 or fp16 operands, f32 sums
+template <bool FP16>
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  if constexpr (FP16)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^e as an f32, exact for -126 <= e <= 127
+__device__ __forceinline__ float pow2(int e) {
+  return __int_as_float((e + 127) << 23);
+}
+
+// the scaling exponent of a tile whose max |x| is m: m 2^-e in [2^14,
+// 2^15) for m >= 2^-48; m = 0 gives e = -15 (frexpf(0) has exponent 0)
+__device__ __forceinline__ int tile_exponent(float m) {
+  int k;
+  frexpf(m, &k);
+  return max(k - 15, E_MIN);
 }
 
 // min(rint(relu(acc s + o) / qs), 127) on the FP32 pipe: the IEEE
@@ -521,37 +314,151 @@ __device__ __forceinline__ uint32_t quantize(float acc, float s, float o,
   return __float_as_uint(fminf(q, 127.f) + 12582912.f) - 0x4B400000u;
 }
 
-// x: (B, T, H, W, CIN) bf16; wf: (NG, KSTEPS, 8, 32, 8) bf16 fragments;
-// scale, bias: (64*NG,) f32; qscale: (NG,) f32; out: (B*T, Ho, Wo, 64*NG)
-// int8.
-template <int KT, int CIN, int NG>
-__global__ void __launch_bounds__(THREADS * NG, 2 / NG)
-stem_pool_q_tc_kernel(const uint16_t* __restrict__ x,
-                      const uint4* __restrict__ wf,
-                      const float* __restrict__ scale,
-                      const float* __restrict__ bias,
-                      const float* __restrict__ qscale,
-                      int8_t* __restrict__ out, int tlen, int h, int wd,
-                      int hc, int wc, int ho, int wo, int tiles_h,
-                      int tiles_w, int total_tiles) {
-  using G = TcGeo<KT, CIN>;
-  constexpr int NTH = THREADS * NG, QS = tc_qstride<NG>();
-  constexpr int STAGE = 8;   // halo loads a thread issues before its stores
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 packed;
+  packed.x = *reinterpret_cast<uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = packed;
+}
+
+__device__ __forceinline__ float4 max4(float4 a, float4 b) {
+  return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z),
+                     fmaxf(a.w, b.w));
+}
+
+// 1. the bf16 halo as bits, STAGE loads in flight a thread
+template <int KT, int CIN, int NTH>
+__device__ __forceinline__ void stage_bf16(uint16_t* x_s,
+                                           const uint16_t* __restrict__ x,
+                                           const Tile& tc, int tlen, int h,
+                                           int wd) {
+  using G = Geo<KT, CIN>;
+  constexpr int STAGE = 8;
+  const HaloOrigin o = halo_origin(tc, tlen, CIN);
+#pragma unroll 1
+  for (int i0 = threadIdx.x; i0 < G::HALO; i0 += STAGE * NTH) {
+    uint16_t v[STAGE];
+#pragma unroll
+    for (int j = 0; j < STAGE; ++j) {
+      int64_t src;
+      v[j] = 0;
+      if (halo_source<KT, CIN>(i0 + j * NTH, o, tlen, h, wd, src))
+        v[j] = __ldg(x + src);
+    }
+#pragma unroll
+    for (int j = 0; j < STAGE; ++j)
+      if (i0 + j * NTH < G::HALO) x_s[i0 + j * NTH] = v[j];
+  }
+}
+
+// 1. the f32 halo as fp16 hi and lo planes of x 2^-e_x, every load of the
+// thread in flight; returns 2^e_x. Holds one barrier (the tile's max).
+template <int KT, int CIN, int NTH>
+__device__ __forceinline__ float stage_f32(uint16_t* x_s, float* wmax,
+                                           const float* __restrict__ x,
+                                           const Tile& tc, int tlen, int h,
+                                           int wd) {
+  using G = Geo<KT, CIN>;
+  constexpr int NLOAD = (G::HALO + NTH - 1) / NTH;
+  const int tid = threadIdx.x;
+  const HaloOrigin o = halo_origin(tc, tlen, CIN);
+  float v[NLOAD];
+  float m = 0.f;
+#pragma unroll
+  for (int j = 0; j < NLOAD; ++j) {
+    int64_t src;
+    v[j] = 0.f;
+    if (halo_source<KT, CIN>(tid + j * NTH, o, tlen, h, wd, src))
+      v[j] = __ldg(x + src);
+    m = fmaxf(m, fabsf(v[j]));
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
+  if (tid % 32 == 0) wmax[tid / 32] = m;
+  __syncthreads();
+  m = wmax[0];
+#pragma unroll
+  for (int w = 1; w < NTH / 32; ++w) m = fmaxf(m, wmax[w]);
+  const int e = tile_exponent(m);
+  const float down = pow2(-e);
+#pragma unroll
+  for (int j = 0; j < NLOAD; ++j) {
+    const int i = tid + j * NTH;
+    if (i < G::HALO) {
+      const float xs = v[j] * down;
+      const __half hi = __float2half_rn(xs);
+      const __half lo = __float2half_rn(xs - __half2float(hi));
+      x_s[i] = __half_as_ushort(hi);
+      x_s[G::HALO + i] = __half_as_ushort(lo);
+    }
+  }
+  return pow2(e);
+}
+
+// x: (B, T, H, W, CIN) f32 (F32IN) or bf16; wf: (NG, KSTEPS, 8, 32, 8)
+// fp16 (F32IN, weights scaled by 2^-e_w) or bf16 fragments; wexp: (64*NG,)
+// 2^e_w (F32IN, else unread); scale, bias: (64*NG,) f32; qscale: (NG,) f32
+// (int8 output, else unread); out: (B*T, Ho, Wo, 64*NG) Tout.
+template <int KT, int CIN, int NG, bool F32IN, typename Tout>
+__global__ void __launch_bounds__(Layout<KT, CIN, NG, F32IN, Tout>::NTH,
+                                  Layout<KT, CIN, NG, F32IN, Tout>::BLOCKS)
+stem_pool_tc_kernel(const void* __restrict__ xin,
+                    const uint4* __restrict__ wf,
+                    const float* __restrict__ wexp,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ qscale,
+                    Tout* __restrict__ out, int tlen, int h, int wd, int hc,
+                    int wc, int ho, int wo, int tiles_h, int tiles_w,
+                    int total_tiles) {
+  using L = Layout<KT, CIN, NG, F32IN, Tout>;
+  using G = Geo<KT, CIN>;
+  constexpr int NTH = L::NTH, CS = L::CSTRIDE;
   extern __shared__ uint4 smem_tc[];
   uint4* w_s = smem_tc;                                    // fragments
-  uint8_t* c_q = reinterpret_cast<uint8_t*>(w_s + NG * G::WFRAG / 8);
-  uint16_t* x_s = reinterpret_cast<uint16_t*>(c_q + NPIX * QS);
-  float* sc_s = reinterpret_cast<float*>(x_s + G::HALO);  // scale, bias, s
+  uint8_t* region = reinterpret_cast<uint8_t*>(w_s + NG * G::WFRAG / 8);
+  uint16_t* x_s = reinterpret_cast<uint16_t*>(region);     // halo planes
+  Tout* c_s = reinterpret_cast<Tout*>(region + (L::ALIAS ? 0 : L::HALO_BYTES));
+  float* sc_s = reinterpret_cast<float*>(region + L::REGION);  // scale 2^e_w
   float* bi_s = sc_s + NG * COUT;
   float* qs_s = bi_s + NG * COUT;                          // s, then 1 / s
+  float* wmax = qs_s + 2 * NG;                             // per-warp max |x|
 
   const int tid = threadIdx.x;
   for (int i = tid; i < NG * G::WFRAG / 8; i += NTH) w_s[i] = __ldg(wf + i);
   for (int i = tid; i < NG * COUT; i += NTH) {
-    sc_s[i] = __ldg(scale + i);
+    if constexpr (F32IN)
+      sc_s[i] = __ldg(scale + i) * __ldg(wexp + i);
+    else
+      sc_s[i] = __ldg(scale + i);
     bi_s[i] = __ldg(bias + i);
   }
-  if (tid < NG) {
+  if (L::INT8 && tid < NG) {
     qs_s[tid] = __ldg(qscale + tid);
     qs_s[NG + tid] = __frcp_rn(qs_s[tid]);
   }
@@ -566,32 +473,17 @@ stem_pool_q_tc_kernel(const uint16_t* __restrict__ x,
 
   for (int tile = blockIdx.x; tile < total_tiles; tile += gridDim.x) {
     const Tile tc = tile_at(tile, tlen, tiles_h, tiles_w);
-    // 1. halo (KT x 35 rows x 40 cols x CIN) as bf16 bits, zeros outside
-    // the frame, the clip and the 35 real columns. The previous tile's
-    // pool read only c_q, and its conv finished before its epilogue
-    // barrier, so x_s is free.
-    {
-      const int ir0 = 2 * tc.cr0 - 3, e0 = (2 * tc.cc0 - 3) * CIN;
-      const int64_t clip = (int64_t)tc.b * tlen;
-#pragma unroll 1
-      for (int i0 = tid; i0 < G::HALO; i0 += STAGE * NTH) {
-        uint16_t v[STAGE];   // STAGE loads in flight a thread
-#pragma unroll
-        for (int j = 0; j < STAGE; ++j) {
-          const int i = i0 + j * NTH;
-          const int r = i / G::XRS, e = i - r * G::XRS;   // halo row, element
-          const int kt = r / IT, row = r - kt * IT;
-          const int ts = tc.t + kt - KT / 2, hy = ir0 + row, we = e0 + e;
-          v[j] = 0;
-          if (i < G::HALO && e < IT * CIN && ts >= 0 && ts < tlen &&
-              hy >= 0 && hy < h && we >= 0 && we < wd * CIN)
-            v[j] = __ldg(x + ((clip + ts) * h + hy) * wd * CIN + we);
-        }
-#pragma unroll
-        for (int j = 0; j < STAGE; ++j)
-          if (i0 + j * NTH < G::HALO) x_s[i0 + j * NTH] = v[j];
-      }
-    }
+    // the previous tile's pool read c_s, which the halo overlays
+    if (L::ALIAS) __syncthreads();
+    // 1. the halo; the previous tile's conv finished before its epilogue
+    // barrier, so x_s is free
+    float fx = 1.f;   // 2^e_x
+    if constexpr (F32IN)
+      fx = stage_f32<KT, CIN, NTH>(x_s, wmax, static_cast<const float*>(xin),
+                                   tc, tlen, h, wd);
+    else
+      stage_bf16<KT, CIN, NTH>(x_s, static_cast<const uint16_t*>(xin), tc,
+                               tlen, h, wd);
     __syncthreads();
 
     // 2. the conv: two M-tiles (conv rows) x 64 channels of trunk tr
@@ -608,87 +500,157 @@ stem_pool_q_tc_kernel(const uint16_t* __restrict__ x,
       xb[i] = x_s + 2 * rows[i] * G::XRS + 2 * CIN * g + 2 * t;
 #pragma unroll   // the halves' halo offsets fold to constants
     for (int s = 0; s < G::KSTEPS; ++s) {
-      constexpr int PIX8 = 16 * CIN;   // pixel g + 8, bf16 further on
+      constexpr int PIX8 = 16 * CIN;   // pixel g + 8, 16-bit further on
       const int o0 = half_offset<KT, CIN>(2 * s);
       const int o1 = half_offset<KT, CIN>(2 * s + 1);
-      uint32_t a[2][4];
+      uint32_t a[2][4], al[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         a[i][0] = lds32(xb[i] + o0);
         a[i][1] = lds32(xb[i] + o0 + PIX8);
         a[i][2] = lds32(xb[i] + o1);
         a[i][3] = lds32(xb[i] + o1 + PIX8);
+        if constexpr (F32IN) {
+          al[i][0] = lds32(xb[i] + G::HALO + o0);
+          al[i][1] = lds32(xb[i] + G::HALO + o0 + PIX8);
+          al[i][2] = lds32(xb[i] + G::HALO + o1);
+          al[i][3] = lds32(xb[i] + G::HALO + o1 + PIX8);
+        }
       }
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const uint4 w = wt[(s * 8 + nt) * 32];
 #pragma unroll
+        for (int i = 0; i < 2; ++i) {   // small parts first
+          if constexpr (F32IN) mma<true>(acc[i][nt], al[i], w.x, w.y);
+          mma<F32IN>(acc[i][nt], a[i], w.z, w.w);
+          mma<F32IN>(acc[i][nt], a[i], w.x, w.y);
+        }
+      }
+    }
+    // every warp's A loads are done before the tile overwrites the halo
+    if (L::ALIAS) __syncthreads();
+
+    if constexpr (L::INT8) {
+      // 3. BN + ReLU + quantize into the shared int8 tile
+      const float qs = qs_s[tr], rqs = qs_s[NG + tr];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (i == 1 && !two_rows) break;
+        const int cr = tc.cr0 + rows[i];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int c = g + 8 * half;
+          if (c >= CT) continue;
+          const int cc = tc.cc0 + c;
+          const bool inside = cr >= 0 && cr < hc && cc >= 0 && cc < wc;
+          uint8_t* dst = reinterpret_cast<uint8_t*>(c_s) +
+                         (rows[i] * CT + c) * CS + tr * COUT + 2 * t;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const int ch = tr * COUT + nt * 8 + 2 * t;
+            const uint32_t q0 = quantize(acc[i][nt][2 * half],
+                                         sc_s[ch] * fx, bi_s[ch], qs, rqs);
+            const uint32_t q1 = quantize(acc[i][nt][2 * half + 1],
+                                         sc_s[ch + 1] * fx, bi_s[ch + 1], qs,
+                                         rqs);
+            *reinterpret_cast<uint16_t*>(dst + nt * 8) =
+                inside ? (uint16_t)(q0 | (q1 << 8)) : (uint16_t)0;
+          }
+        }
+      }
+      __syncthreads();
+
+      // 4. 3x3/2 max-pool of the bytes of every trunk, 4 channels a word
+      // (values are 0..127, so the unsigned byte max is the int8 max)
+      const uint8_t* c_q = reinterpret_cast<const uint8_t*>(c_s);
+      for (int i = tid; i < PT * PT * (NG * COUT / 4); i += NTH) {
+        const int q4 = i % (NG * COUT / 4);
+        const int pp = i / (NG * COUT / 4);
+        const int pr = pp / PT, pc = pp % PT;
+        const int po = tc.po0 + pr, pcw = tc.pc0 + pc;
+        if (po >= ho || pcw >= wo) continue;
+        uint32_t m = 0u;
+#pragma unroll
+        for (int dr = 0; dr < 3; ++dr)
+#pragma unroll
+          for (int dc = 0; dc < 3; ++dc) {
+            const int p = (2 * pr + dr) * CT + 2 * pc + dc;
+            m = __vmaxu4(m, *reinterpret_cast<const uint32_t*>(
+                                c_q + p * CS + 4 * q4));
+          }
+        *reinterpret_cast<uint32_t*>(
+            reinterpret_cast<int8_t*>(out) +
+            (((int64_t)tc.n * ho + po) * wo + pcw) * (NG * COUT) + 4 * q4) = m;
+      }
+    } else {
+      constexpr int NTP = L::TILE_CH / 8;   // n-tiles a part
+#pragma unroll
+      for (int part = 0; part < L::PARTS; ++part) {
+        if (part > 0) __syncthreads();   // the previous part's pool is done
+        // 3. BN + ReLU into the shared tile, in the output's type
+#pragma unroll
         for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][nt], a[i], w.z, w.w);   // w_lo first
-          mma_bf16(acc[i][nt], a[i], w.x, w.y);
+          if (i == 1 && !two_rows) break;
+          const int cr = tc.cr0 + rows[i];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int c = g + 8 * half;
+            if (c >= CT) continue;
+            const int cc = tc.cc0 + c;
+            const bool inside = cr >= 0 && cr < hc && cc >= 0 && cc < wc;
+            Tout* dst = c_s + (rows[i] * CT + c) * CS + 2 * t;
+#pragma unroll
+            for (int j = 0; j < NTP; ++j) {
+              const int nt = part * NTP + j, ch = nt * 8 + 2 * t;
+              const float y0 = fmaxf(
+                  fmaf(acc[i][nt][2 * half], sc_s[ch] * fx, bi_s[ch]), 0.f);
+              const float y1 = fmaxf(fmaf(acc[i][nt][2 * half + 1],
+                                          sc_s[ch + 1] * fx, bi_s[ch + 1]),
+                                     0.f);
+              store2(dst + j * 8, inside ? y0 : 0.f, inside ? y1 : 0.f);
+            }
+          }
+        }
+        __syncthreads();
+
+        // 4. 3x3/2 max-pool: pooled (pr, pc) reads tile rows/cols
+        // 2pr..2pr+2
+        for (int i = tid; i < PT * PT * (L::TILE_CH / 4); i += NTH) {
+          const int q4 = i % (L::TILE_CH / 4);
+          const int pp = i / (L::TILE_CH / 4);
+          const int pr = pp / PT, pc = pp % PT;
+          const int po = tc.po0 + pr, pcw = tc.pc0 + pc;
+          if (po >= ho || pcw >= wo) continue;
+          float4 m = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int dr = 0; dr < 3; ++dr)
+#pragma unroll
+            for (int dc = 0; dc < 3; ++dc) {
+              const int p = (2 * pr + dr) * CT + 2 * pc + dc;
+              m = max4(m, load4(c_s + p * CS + 4 * q4));
+            }
+          store4(out + (((int64_t)tc.n * ho + po) * wo + pcw) * COUT +
+                     part * L::TILE_CH + 4 * q4,
+                 m);
         }
       }
     }
-
-    // 3. BN + ReLU + quantize into the shared int8 tile
-    const float qs = qs_s[tr], rqs = qs_s[NG + tr];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (i == 1 && !two_rows) break;
-      const int cr = tc.cr0 + rows[i];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = g + 8 * half;
-        if (c >= CT) continue;
-        const int cc = tc.cc0 + c;
-        const bool inside = cr >= 0 && cr < hc && cc >= 0 && cc < wc;
-        uint8_t* dst = c_q + (rows[i] * CT + c) * QS + tr * COUT + 2 * t;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int ch = tr * COUT + nt * 8 + 2 * t;
-          const uint32_t q0 = quantize(acc[i][nt][2 * half], sc_s[ch],
-                                       bi_s[ch], qs, rqs);
-          const uint32_t q1 = quantize(acc[i][nt][2 * half + 1],
-                                       sc_s[ch + 1], bi_s[ch + 1], qs, rqs);
-          *reinterpret_cast<uint16_t*>(dst + nt * 8) =
-              inside ? (uint16_t)(q0 | (q1 << 8)) : (uint16_t)0;
-        }
-      }
-    }
-    __syncthreads();
-
-    // 4. 3x3/2 max-pool of the bytes of every trunk, 4 channels a word
-    for (int i = tid; i < PT * PT * (NG * COUT / 4); i += NTH) {
-      const int q4 = i % (NG * COUT / 4);
-      const int pp = i / (NG * COUT / 4);
-      const int pr = pp / PT, pc = pp % PT;
-      const int po = tc.po0 + pr, pcw = tc.pc0 + pc;
-      if (po >= ho || pcw >= wo) continue;
-      uint32_t m = 0u;
-#pragma unroll
-      for (int dr = 0; dr < 3; ++dr)
-#pragma unroll
-        for (int dc = 0; dc < 3; ++dc) {
-          const int p = (2 * pr + dr) * CT + 2 * pc + dc;
-          m = __vmaxu4(m, *reinterpret_cast<const uint32_t*>(c_q + p * QS +
-                                                              4 * q4));
-        }
-      *reinterpret_cast<uint32_t*>(
-          out + (((int64_t)tc.n * ho + po) * wo + pcw) * (NG * COUT) +
-          4 * q4) = m;
-    }
-    // the next tile's epilogue writes c_q only after its halo barrier,
-    // which every thread reaches after this pool
+    // without ALIAS, the next tile's epilogue writes c_s only after its
+    // halo barrier, which every thread reaches after this pool
   }
 }
 
-// Launches `kernel` as persistent blocks over every (frame, tile) item.
-template <typename Kernel, typename... Args>
-int launch_persistent(Kernel kernel, int threads, int smem, int frames,
-                      int tlen, int h, int wd, cudaStream_t stream,
-                      Args... args) {
+// Launches stem_pool_tc_kernel as persistent blocks over every (frame,
+// tile) item.
+template <int KT, int CIN, int NG, bool F32IN, typename Tout>
+int launch(const void* x, const void* wf, const void* wexp, const void* scale,
+           const void* bias, const void* qscale, void* out, int frames,
+           int tlen, int h, int wd, cudaStream_t stream) {
+  using L = Layout<KT, CIN, NG, F32IN, Tout>;
+  auto kernel = stem_pool_tc_kernel<KT, CIN, NG, F32IN, Tout>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
@@ -696,7 +658,7 @@ int launch_persistent(Kernel kernel, int threads, int smem, int frames,
                                     dev)) != cudaSuccess)
     return (int)err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, threads, smem)) != cudaSuccess)
+           &per_sm, kernel, L::NTH, L::BYTES)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int hc = (h - 1) / 2 + 1, wc = (wd - 1) / 2 + 1;
@@ -706,129 +668,103 @@ int launch_persistent(Kernel kernel, int threads, int smem, int frames,
   if (total <= 0 || total > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int grid = (int)(total < (long long)sms * per_sm ? total
                                                          : (long long)sms * per_sm);
-  kernel<<<grid, threads, smem, stream>>>(args..., tlen, h, wd, hc, wc, ho,
-                                          wo, tiles_h, tiles_w, (int)total);
+  kernel<<<grid, L::NTH, L::BYTES, stream>>>(
+      x, static_cast<const uint4*>(wf), static_cast<const float*>(wexp),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<const float*>(qscale), static_cast<Tout*>(out), tlen, h,
+      wd, hc, wc, ho, wo, tiles_h, tiles_w, (int)total);
   return (int)cudaGetLastError();
 }
 
-template <typename Tio, int KT, int CIN>
-int launch(const void* x, const void* w, const void* scale, const void* bias,
-           void* out, int b, int tlen, int h, int wd, cudaStream_t stream) {
-  return launch_persistent(
-      stem_pool_kernel<Tio, KT, CIN>, THREADS, smem_bytes<KT, CIN>(),
-      b * tlen, tlen,
-      h, wd, stream, static_cast<const Tio*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<Tio*>(out));
-}
-
-template <typename Tin, int KT, int CIN, int NG>
-int launch_q(const void* x, const void* w, const void* scale,
-             const void* bias, const void* qscale, void* out, int b, int tlen,
-             int h, int wd, cudaStream_t stream) {
-  return launch_persistent(
-      stem_pool_q_kernel<Tin, KT, CIN, NG>, THREADS,
-      smem_bytes_q<KT, CIN, NG>(), b * tlen, tlen, h, wd, stream,
-      static_cast<const Tin*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<const float*>(qscale), static_cast<int8_t*>(out));
-}
-
+// shared memory of each instance, as egot2x_stem_pool_smem_bytes reports it
 template <int KT, int CIN, int NG>
-int launch_q_tc(const void* x, const void* wf, const void* scale,
-                const void* bias, const void* qscale, void* out, int b,
-                int tlen, int h, int wd, cudaStream_t stream) {
-  return launch_persistent(
-      stem_pool_q_tc_kernel<KT, CIN, NG>, THREADS * NG,
-      smem_bytes_tc<KT, CIN, NG>(), b * tlen, tlen, h, wd, stream,
-      static_cast<const uint16_t*>(x), static_cast<const uint4*>(wf),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<const float*>(qscale), static_cast<int8_t*>(out));
-}
-
-// kind 2 with ng 1 or 2, kind 3 with ng 1; dtype 0 (f32 x, f32 taps) on
-// the CUDA cores, dtype 1 (bf16 x, bf16 fragments) on the tensor cores
-int dispatch_q(const void* x, const void* w, const void* scale,
-               const void* bias, const void* qscale, void* out, int kind,
-               int dtype, int ng, int b, int tlen, int h, int wd,
-               cudaStream_t s) {
-  if (dtype == 0) {
-    if (kind == 2 && ng == 1)
-      return launch_q<float, 1, 3, 1>(x, w, scale, bias, qscale, out, b, 1,
-                                      h, wd, s);
-    if (kind == 2 && ng == 2)
-      return launch_q<float, 1, 3, 2>(x, w, scale, bias, qscale, out, b, 1,
-                                      h, wd, s);
-    if (kind == 3 && ng == 1)
-      return launch_q<float, 5, 1, 1>(x, w, scale, bias, qscale, out, b,
-                                      tlen, h, wd, s);
-  } else if (dtype == 1) {
-    if (kind == 2 && ng == 1)
-      return launch_q_tc<1, 3, 1>(x, w, scale, bias, qscale, out, b, 1, h,
-                                  wd, s);
-    if (kind == 2 && ng == 2)
-      return launch_q_tc<1, 3, 2>(x, w, scale, bias, qscale, out, b, 1, h,
-                                  wd, s);
-    if (kind == 3 && ng == 1)
-      return launch_q_tc<5, 1, 1>(x, w, scale, bias, qscale, out, b, tlen,
-                                  h, wd, s);
-  }
-  return (int)cudaErrorInvalidValue;
+int smem_of(int dtype, bool int8) {
+  if (int8)
+    return dtype == 0 ? Layout<KT, CIN, NG, true, int8_t>::BYTES
+                      : Layout<KT, CIN, NG, false, int8_t>::BYTES;
+  return dtype == 0 ? Layout<KT, CIN, NG, true, float>::BYTES
+                    : Layout<KT, CIN, NG, false, __nv_bfloat16>::BYTES;
 }
 
 }  // namespace
 
 extern "C" {
 
-// kind 2: 2D stem, x (b, h, w, 3), w (7, 7, 3, 64)
-// kind 3: 3D stem, x (b, tlen, h, w), w (5, 7, 7, 64)
-// dtype 0: float32, 1: bfloat16 (x and out). Returns a cudaError_t.
-int egot2x_stem_pool(const void* x, const void* w, const void* scale,
-                     const void* bias, void* out, int kind, int dtype, int b,
-                     int tlen, int h, int wd, void* stream) {
+// The C interface's version: 2 since the float stems take weight fragments
+// (1, implicit before, took f32 taps for the float stem and for f32 input).
+int egot2x_stem_pool_abi() { return 2; }
+
+// Float stems. kind 2: 2D, x (b, h, w, 3); kind 3: 3D, x (b, tlen, h, w).
+// dtype 0: f32 x and out, wf the fp16 fragments of the weights scaled by
+// 2^-e_w and wexp (64,) the 2^e_w; dtype 1: bf16 x and out, wf the bf16
+// fragments (wexp unread). wf (1, ksteps, 8, 32, 8) from
+// ops/stem.py::weight_fragments. Returns a cudaError_t.
+int egot2x_stem_pool(const void* x, const void* wf, const void* wexp,
+                     const void* scale, const void* bias, void* out, int kind,
+                     int dtype, int b, int tlen, int h, int wd,
+                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind == 2 && dtype == 0)
-    return launch<float, 1, 3>(x, w, scale, bias, out, b, 1, h, wd, s);
+    return launch<1, 3, 1, true, float>(x, wf, wexp, scale, bias, nullptr,
+                                        out, b, 1, h, wd, s);
   if (kind == 2 && dtype == 1)
-    return launch<__nv_bfloat16, 1, 3>(x, w, scale, bias, out, b, 1, h, wd, s);
+    return launch<1, 3, 1, false, __nv_bfloat16>(x, wf, wexp, scale, bias,
+                                                 nullptr, out, b, 1, h, wd,
+                                                 s);
   if (kind == 3 && dtype == 0)
-    return launch<float, 5, 1>(x, w, scale, bias, out, b, tlen, h, wd, s);
+    return launch<5, 1, 1, true, float>(x, wf, wexp, scale, bias, nullptr,
+                                        out, b * tlen, tlen, h, wd, s);
   if (kind == 3 && dtype == 1)
-    return launch<__nv_bfloat16, 5, 1>(x, w, scale, bias, out, b, tlen, h, wd,
-                                       s);
+    return launch<5, 1, 1, false, __nv_bfloat16>(x, wf, wexp, scale, bias,
+                                                 nullptr, out, b * tlen, tlen,
+                                                 h, wd, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// int8 stems, ng trunks stacked (kind 2: ng 1 or 2; kind 3: ng 1);
-// scale, bias (64*ng,); qscale (ng,); out int8 (b*tlen, ho, wo, 64*ng).
-// dtype 0: f32 x and f32 taps w (ng, 7, 7, 3, 64) or (1, 5, 7, 7, 64);
-// dtype 1: bf16 x and w the bf16 weight fragments (ng, ksteps, 8, 32, 8)
-// of ops/stem.py::weight_fragments.
-int egot2x_stem_pool_q(const void* x, const void* w, const void* scale,
-                       const void* bias, const void* qscale, void* out,
-                       int kind, int dtype, int ng, int b, int tlen, int h,
-                       int wd, void* stream) {
-  return dispatch_q(x, w, scale, bias, qscale, out, kind, dtype, ng, b, tlen,
-                    h, wd, static_cast<cudaStream_t>(stream));
-}
-
-// dynamic shared memory of one block, bytes (kind as above; ng 0 is the
-// float kernel; dtype picks the int8 kernel as egot2x_stem_pool_q does)
-int egot2x_stem_pool_smem_bytes(int kind, int ng, int dtype) {
-  if (ng == 0) return kind == 2 ? smem_bytes<1, 3>() : smem_bytes<5, 1>();
-  if (dtype == 1) {
-    if (kind == 2) return ng == 1 ? smem_bytes_tc<1, 3, 1>()
-                                  : smem_bytes_tc<1, 3, 2>();
-    return smem_bytes_tc<5, 1, 1>();
+// int8 stems, ng trunks stacked (kind 2: ng 1 or 2; kind 3: ng 1); wf
+// (ng, ksteps, 8, 32, 8) and wexp (64*ng,) as for the float stems by
+// dtype; scale, bias (64*ng,); qscale (ng,); out int8 (b*tlen, ho, wo,
+// 64*ng).
+int egot2x_stem_pool_q(const void* x, const void* wf, const void* wexp,
+                       const void* scale, const void* bias,
+                       const void* qscale, void* out, int kind, int dtype,
+                       int ng, int b, int tlen, int h, int wd, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (kind == 2 && ng == 1)
+      return launch<1, 3, 1, true, int8_t>(x, wf, wexp, scale, bias, qscale,
+                                           out, b, 1, h, wd, s);
+    if (kind == 2 && ng == 2)
+      return launch<1, 3, 2, true, int8_t>(x, wf, wexp, scale, bias, qscale,
+                                           out, b, 1, h, wd, s);
+    if (kind == 3 && ng == 1)
+      return launch<5, 1, 1, true, int8_t>(x, wf, wexp, scale, bias, qscale,
+                                           out, b * tlen, tlen, h, wd, s);
+  } else if (dtype == 1) {
+    if (kind == 2 && ng == 1)
+      return launch<1, 3, 1, false, int8_t>(x, wf, wexp, scale, bias, qscale,
+                                            out, b, 1, h, wd, s);
+    if (kind == 2 && ng == 2)
+      return launch<1, 3, 2, false, int8_t>(x, wf, wexp, scale, bias, qscale,
+                                            out, b, 1, h, wd, s);
+    if (kind == 3 && ng == 1)
+      return launch<5, 1, 1, false, int8_t>(x, wf, wexp, scale, bias, qscale,
+                                            out, b * tlen, tlen, h, wd, s);
   }
-  if (kind == 2) return ng == 1 ? smem_bytes_q<1, 3, 1>()
-                                : smem_bytes_q<1, 3, 2>();
-  return smem_bytes_q<5, 1, 1>();
+  return (int)cudaErrorInvalidValue;
 }
 
-// bf16 weight fragments of one trunk (kind as above)
-int egot2x_stem_pool_q_fragment_elems(int kind) {
-  return kind == 2 ? TcGeo<1, 3>::WFRAG : TcGeo<5, 1>::WFRAG;
+// dynamic shared memory of one block, bytes: kind as above, ng 0 for the
+// float stem or the int8 stem's trunks, dtype 0 (f32 input) or 1 (bf16)
+int egot2x_stem_pool_smem_bytes(int kind, int ng, int dtype) {
+  if (kind == 3) return smem_of<5, 1, 1>(dtype, ng != 0);
+  return ng == 2 ? smem_of<1, 3, 2>(dtype, true)
+                 : smem_of<1, 3, 1>(dtype, ng != 0);
+}
+
+// 16-bit elements of one trunk's weight fragments (kind as above)
+int egot2x_stem_pool_fragment_elems(int kind) {
+  return kind == 2 ? Geo<1, 3>::WFRAG : Geo<5, 1>::WFRAG;
 }
 
 const char* egot2x_cuda_error_string(int err) {

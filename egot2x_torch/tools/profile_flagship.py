@@ -52,10 +52,9 @@ def _category(name: str) -> str:
     n = name.lower()
     if "flash_attention_kernel" in n:
         return "flash attention kernel (ours)"
-    if "stem_pool_q_kernel" in n or "stem_pool_q_tc_kernel" in n:
-        return "int8 stem kernel (ours)"
-    if "stem_pool_kernel" in n:
-        return "stem kernel (ours)"
+    if "stem_pool_tc_kernel" in n:   # <KT, CIN, NG, F32IN, Tout>
+        return ("int8 stem kernel (ours)" if "signed char" in n
+                else "stem kernel (ours)")
     if (("gemm" in n or "xmma" in n or "cutlass" in n)
             and ("s8" in n or "i8" in n or "int8" in n or "imma" in n)):
         return "int8 matmul (torch._int_mm)"

@@ -13,7 +13,8 @@ that skips the conftest's marker registration, so ``-o`` registers
         --strict-markers -p no:cacheprovider -q tests/test_torch_port_cuda.py
 
 Tolerances: f32 kernel vs the plain f32 version (cuDNN with TF32 off),
-rtol = atol = 1e-4 as tests/test_pallas_stem.py holds the Pallas kernel;
+rtol = atol = 1e-4 as tests/test_pallas_stem.py holds the Pallas kernel
+(on raw 0-255 frames and at 1e6 against the plain version in f64);
 bf16 kernel vs the plain f32 version of the same bf16-rounded inputs,
 rtol = atol = 1e-2 (the kernel rounds its f32 result to bf16 once: 2^-8
 relative). int8 stems: |diff| <= 1 quantum everywhere and >= 99.9% equal
@@ -59,7 +60,8 @@ TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 224, 224), (2, 64, 64), (2, 70, 90),
-                                   (1, 9, 17)])
+                                   (1, 9, 17), (2, 112, 112), (2, 200, 168),
+                                   (2, 97, 131)])
 def test_stem_pool_2d_kernel_matches_plain(cuda, dtype, shape):
     rng = np.random.default_rng(0)
     n, h, w = shape
@@ -78,7 +80,8 @@ def test_stem_pool_2d_kernel_matches_plain(cuda, dtype, shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 6, 112, 112), (3, 2, 40, 52),
-                                   (1, 1, 16, 16)])
+                                   (1, 1, 16, 16), (1, 7, 112, 112),
+                                   (5, 7, 40, 52)])
 def test_stem_pool_3d_kernel_matches_plain(cuda, dtype, shape):
     """Covers clips shorter than the 5-tap window and the per-sample
     temporal zero-pad."""
@@ -93,6 +96,98 @@ def test_stem_pool_3d_kernel_matches_plain(cuda, dtype, shape):
     ref = stem.stem_pool_3d_plain(x.float(), weight, scale, bias)
     assert out.shape == ref.shape
     torch.testing.assert_close(out.float(), ref, **TOL[dtype])
+
+
+def _stem_inputs(kind, x_host, cuda, seed):
+    """(wrapper, plain, x on the card, weight, scale, bias) of a float stem
+    with weights N(0, 1 / fan-in)."""
+    rng = np.random.default_rng(seed)
+    wshape, fan = ((64, 3, 7, 7), 147) if kind == "2d" else ((64, 1, 5, 7, 7),
+                                                              245)
+    weight, scale, bias = _params(rng, wshape, cuda)
+    weight = weight * (10.0 / np.sqrt(fan))      # _params draws 0.1 N(0, 1)
+    fns = ((stem.stem_pool_2d, stem.stem_pool_2d_plain) if kind == "2d"
+           else (stem.stem_pool_3d, stem.stem_pool_3d_plain))
+    return (*fns, torch.from_numpy(x_host).to(cuda), weight, scale, bias)
+
+
+def _frames(kind, rng, draw):
+    shape = (2, 120, 100, 3) if kind == "2d" else (2, 5, 60, 44)
+    return draw(rng, shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("kind", ["2d", "3d"])
+def test_stem_kernels_take_raw_frames(cuda, kind, out):
+    """Frames of 0-255 integers, as uint8 frames arrive: sums ~100x those
+    of normalized frames. f32 is held against the plain version in f64
+    (the f32 conv's own rounding takes up to half the 1e-4 gate here);
+    bf16 against the f32 plain version at 1e-2; the int8 stem with f32
+    input, its step from the float output's max as ``calibrate`` takes
+    it, against its plain version."""
+    rng = np.random.default_rng(11)
+    x = _frames(kind, rng, lambda r, s: r.integers(0, 256, s))
+    kernel, plain, x, weight, scale, bias = _stem_inputs(kind, x, cuda, 12)
+    if out == "int8":
+        steps = (plain(x, weight, scale, bias).max() / 127.0).reshape(1)
+        q_kernel, q_plain = ((stem.stem_pool_q_2d, stem.stem_pool_q_2d_plain)
+                             if kind == "2d" else
+                             (stem.stem_pool_q_3d, stem.stem_pool_q_3d_plain))
+        got = q_kernel(x, weight, scale, bias, steps)
+        _assert_int8_close(got, q_plain(x, weight, scale, bias, steps))
+        return
+    if out == "bf16":
+        got = kernel(x.to(torch.bfloat16), weight, scale, bias)
+        want = plain(x, weight, scale, bias)
+    else:
+        got = kernel(x, weight, scale, bias).double()
+        want = plain(x.double(), weight.double(), scale.double(),
+                     bias.double())
+    tol = TOL[torch.float32 if out == "f32" else torch.bfloat16]
+    torch.testing.assert_close(got.to(want.dtype), want, **tol)
+
+
+@pytest.mark.parametrize("q", [False, True])
+@pytest.mark.parametrize("kind", ["2d", "3d"])
+def test_stem_kernels_take_a_zero_frame(cuda, kind, q):
+    """An all-zero frame (a clip of zeros in 3D) beside a normal one: its
+    tiles' max is 0 and must get a defined scale; the float output there
+    is the pooled ReLU(bias)."""
+    rng = np.random.default_rng(13)
+    x = _frames(kind, rng, lambda r, s: r.standard_normal(s))
+    x[0] = 0.0
+    kernel, plain, x, weight, scale, bias = _stem_inputs(kind, x, cuda, 14)
+    if q:
+        steps = torch.tensor([0.02], device=cuda)
+        q_kernel, q_plain = ((stem.stem_pool_q_2d, stem.stem_pool_q_2d_plain)
+                             if kind == "2d" else
+                             (stem.stem_pool_q_3d, stem.stem_pool_q_3d_plain))
+        _assert_int8_close(q_kernel(x, weight, scale, bias, steps),
+                           q_plain(x, weight, scale, bias, steps))
+        return
+    got = kernel(x, weight, scale, bias)
+    torch.testing.assert_close(got, plain(x, weight, scale, bias),
+                               **TOL[torch.float32])
+    zero = got[:1] if kind == "2d" else got[:x.shape[1]]
+    torch.testing.assert_close(zero, torch.relu(bias).expand_as(zero),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["2d", "3d"])
+def test_stem_kernel_takes_a_huge_input(cuda, kind):
+    """One input of 1e6 among normal frames: the tile's scale follows it,
+    so its other inputs keep absolute precision only (~2^-38 of 1e6). The
+    output is finite and within 1e-4 of max |ref| of the plain version in
+    f64; at this scale the f32 conv itself misses the absolute 1e-4."""
+    rng = np.random.default_rng(15)
+    x = _frames(kind, rng, lambda r, s: r.standard_normal(s))
+    x.reshape(-1)[x.size // 3] = 1e6
+    kernel, plain, x, weight, scale, bias = _stem_inputs(kind, x, cuda, 16)
+    got = kernel(x, weight, scale, bias)
+    assert bool(torch.isfinite(got).all())
+    want = plain(x.double(), weight.double(), scale.double(), bias.double())
+    assert float((got.double() - want).abs().max()) <= (
+        1e-4 * float(want.abs().max()))
 
 
 def test_stem_kernel_rejects_what_it_does_not_take(cuda):
@@ -156,10 +251,11 @@ def _assert_int8_close(got, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [1, 2])
 @pytest.mark.parametrize("shape", [(3, 224, 224), (2, 70, 90), (1, 9, 17),
-                                   (2, 200, 168), (5, 112, 112)])
+                                   (2, 200, 168), (5, 112, 112),
+                                   (2, 97, 131)])
 def test_stem_pool_q_2d_kernel_matches_plain(cuda, dtype, n, shape):
-    """bf16 input takes the tensor-core kernel, f32 the CUDA-core one;
-    200 x 168 is no whole number of 7 x 7 pooled tiles."""
+    """f32 input takes the 3xFP16 body, bf16 the two-pass bf16 one;
+    200 x 168 and 97 x 131 are no whole number of 7 x 7 pooled tiles."""
     rng = np.random.default_rng(4)
     b, h, w = shape
     x = torch.from_numpy(rng.standard_normal((b, h, w, 3)).astype(np.float32))
@@ -177,7 +273,8 @@ def test_stem_pool_q_2d_kernel_matches_plain(cuda, dtype, n, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 6, 112, 112), (3, 2, 40, 52),
                                    (1, 1, 16, 16), (1, 2, 224, 224),
-                                   (1, 3, 200, 168), (5, 4, 112, 112)])
+                                   (1, 3, 200, 168), (5, 4, 112, 112),
+                                   (1, 7, 112, 112), (5, 7, 40, 52)])
 def test_stem_pool_q_3d_kernel_matches_plain(cuda, dtype, shape):
     """Clips of 1 and 2 frames take the per-sample temporal pad."""
     rng = np.random.default_rng(5)
