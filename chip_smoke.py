@@ -54,7 +54,23 @@ Phases, each printing one line or more:
               behind the lossAV head at its defaults (hidden 128, 1 layer,
               4 heads) on a bucket of 16 tracks x 150 frames with RGB at
               224^2; per forward two RGB stems and one TalkNet stem; track
-              0 must match the port's CPU forward.
+              0 must match the port's CPU forward;
+  9. train    frozen Stage-II training of the same flagship through the
+              port's ``TalkingToMe2Loader`` (seeded weights from
+              ``build_state``, Adam, dropout 0.1), f32 with TF32 off: a
+              warm-up and 3 timed steps of 16 clips x 30 frames, then one
+              validation batch. The loss must stay finite, every
+              translator parameter must move, every trunk parameter and BN
+              statistic must stay bit for bit, each step must launch two
+              RGB stems and one TalkNet stem (no flash); one step with
+              dropout off on 2 clips must match the same step on the CPU
+              (loss to 1e-4 relative, every gradient leaf at cosine
+              >= 0.99999);
+ 10. train_int8  the same with the int8 frozen trunks (``quant_trunks``,
+              bf16 compute), calibrated on the first batch as the Trainer
+              does: per step two int8 RGB stems (training never fuses
+              them), one int8 TalkNet stem and 57 int8 convs; card vs CPU
+              at the int8 bars (loss 1e-2 relative, cosine >= 0.99).
 
 Then one JSON line of every kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -70,6 +86,7 @@ rate as ``bound_cuda_core_ms``.
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -106,7 +123,8 @@ SOURCES = ("stem_pool", "flash_attention")   # egot2x_torch/csrc/<name>.cu
 # of 2048 frames (8 heads; cross A<->V d 128, self-AV d 256) and the JAX
 # oracle's odd shape (tests/test_pallas_attention.py)
 FLASH_SHAPES = [("cross", 8, 2048, 2048, 16), ("self_av", 8, 2048, 2048, 32),
-                ("oracle", 2, 257, 130, 40)]
+                ("oracle", 2, 257, 130, 40),
+                ("wide", 2, 2048, 2048, 256)]   # D > 128: the chunked body
 FLASH_PER_FORWARD = {"cross": 2, "self_av": 1}   # launches on the track
 FLASH_ITERS = 50   # launches a graph replays to time a row
 # kernel vs plain: f32 as tests/test_pallas_attention.py:27 holds the Pallas
@@ -118,6 +136,13 @@ MUFU_EXP_PER_S = 16 * 132 * 1.98e9
 ASD_TRACKS, ASD_FRAMES = 16, 150   # run_asd's eval bucket at the 150 base
 ASD_LONG = 2048                    # one whole track: the flash threshold
 ASD_REPEATS = 2                    # timed forwards per request
+TRAIN_STEPS = 3                    # timed train steps after a warm-up
+TRAIN_CHECK_CLIPS = 2              # the card vs CPU step
+TTM_CLASS_WEIGHTS = [0.266, 0.734]
+# card vs CPU train step: f32 (TF32 off) and the int8 bars of ROADMAP.md
+# §3 item 3 (the JAX package's full-translator int8 gate: cosine > 0.99)
+TRAIN_LOSS_RTOL = {False: 1e-4, True: 1e-2}
+TRAIN_GRAD_COSINE = {False: 0.99999, True: 0.99}
 
 
 def fail(msg):
@@ -186,8 +211,9 @@ def device_phase():
 
 
 def _kernel_label(mangled):
-    """'stem_pool_tc_kernel<f32->int8,2d,n2>' or
-    'flash_attention_kernel<f32,d16>' from a mangled instance name."""
+    """'stem_pool_tc_kernel<f32->int8,2d,n2>',
+    'flash_attention_kernel<f32,d16>' or 'flash_attention_wide_kernel<f32>'
+    from a mangled instance name."""
     import re
 
     m = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)E",
@@ -196,6 +222,10 @@ def _kernel_label(mangled):
         dtype, dp = m.groups()
         return (f"flash_attention_kernel<{'f32' if dtype == 'f' else 'bf16'},"
                 f"d{dp}>")
+    m = re.search(r"flash_attention_wide_kernelI(f|13__nv_bfloat16)E", mangled)
+    if m:
+        return (f"flash_attention_wide_kernel<"
+                f"{'f32' if m.group(1) == 'f' else 'bf16'}>")
     m = re.search(r"stem_pool_tc_kernelILi(\d+)ELi\d+ELi(\d+)ELb([01])E"
                   r"(f|13__nv_bfloat16|a)E", mangled)
     if not m:
@@ -242,7 +272,7 @@ def build_phase():
                 f"{name}_d{d}": flash.kernel_smem_bytes(d, dtype)
                 for name, dtype in (("f32", torch.float32),
                                     ("bf16", torch.bfloat16))
-                for d in (16, 32, 40, 64, 128)}}
+                for d in (16, 32, 40, 64, 128, 256)}}
     for b in built:
         report = _ptxas_report(b.log)
         phase("build", source=f"egot2x_torch/csrc/{b.name}.cu",
@@ -536,7 +566,8 @@ def _flash_bound(q, k, out):
 
 def flash_phase():
     """The flash kernel vs its plain version, f32 and bf16, at TalkNet's
-    track shapes and the JAX oracle's odd shape; returns the rows per
+    track shapes, the JAX oracle's odd shape and a head dim of 256 (the
+    body for D > 128, which no path runs yet); returns the rows per
     (shape name, dtype). The yardstick is ``scaled_dot_product_attention``
     on (1, BH, N, D) views: its fused backends take 4-D input only. All
     three are timed by graph replay (``graph_ms``): a launch takes tens of
@@ -969,6 +1000,168 @@ def asd2_phase(card):
     phase("asd2_check", vs="cpu, track 0", max_abs_err=errs, tol=LOGIT_TOL)
 
 
+def _train_cfg(quant):
+    from egot2x_torch.core.config import Config
+
+    return Config(model="TaskFusionMFTransformer3Task",
+                  weights=TTM_CLASS_WEIGHTS, lr=1e-4, wd=1e-4,
+                  hidden_dim=HIDDEN, num_layers=LAYERS, num_heads=HEADS,
+                  dropout=0.1, quant_trunks=quant,
+                  compute_dtype="bf16" if quant else "float32")
+
+
+def _train_batches(n, seed):
+    """``n`` train batches of B clips x T frames drawn on the card: RGB
+    normalized from uint8, grey faces in [0, 255], MFCC, labels, and the
+    segment fields validation reads."""
+    import torch
+
+    from egot2x_torch.nn.resnet2d import normalize_u8_frames
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    u8 = lambda *shape: torch.randint(0, 256, shape, generator=g,
+                                      device="cuda", dtype=torch.uint8)
+    return [dict(frames=normalize_u8_frames(u8(B, T, IMG, IMG, 3)),
+                 video_asd=u8(B, T, ASD_IMG, ASD_IMG).float(),
+                 audio=torch.zeros(B, T * 16000 // 30, device="cuda"),
+                 audio_asd=torch.randn(B, 4 * T, 13, generator=g,
+                                       device="cuda"),
+                 label=torch.randint(0, 2, (B,), generator=g, device="cuda"),
+                 seg_id=[f"seg{i}" for i in range(B)],
+                 start=[0] * B, end=[T] * B)
+            for _ in range(n)]
+
+
+def _no_dropout(model):
+    from egot2x_torch.nn.common import Dropout
+
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+
+
+def _train_check(task, state, batch, quant):
+    """One train step with dropout off on the first clips of ``batch``, on
+    the card and on the CPU from the card model's state (weights and int8
+    scales): (loss relative error, least gradient cosine over the
+    translator's leaves, that leaf)."""
+    import torch
+
+    from egot2x_torch.tasks.ttm_2loader import TalkingToMe2Loader
+
+    small = {k: v[:TRAIN_CHECK_CLIPS] for k, v in batch.items()}
+    cpu_task = TalkingToMe2Loader(_train_cfg(quant), device="cpu")
+    cpu_state = cpu_task.build_state(SEED)
+    cpu_task.model.load_state_dict(
+        {k: v.cpu() for k, v in state.model.state_dict().items()})
+    _no_dropout(state.model)
+    _no_dropout(cpu_task.model)
+    state, card = task.train_step(state, small, torch.Generator("cuda"))
+    cpu_state, cpu = cpu_task.train_step(
+        cpu_state, {k: v.cpu() for k, v in small.items()
+                    if isinstance(v, torch.Tensor)}, torch.Generator())
+    grads = {n: p.grad.cpu() for n, p in state.model.named_parameters()
+             if p.grad is not None}
+    cpu_grads = {n: p.grad for n, p in cpu_task.model.named_parameters()
+                 if p.grad is not None}
+    if sorted(grads) != sorted(cpu_grads):
+        fail(f"train check: gradient leaves differ, {sorted(grads)} vs "
+             f"{sorted(cpu_grads)}")
+    cosines = {n: _cosine(grads[n], cpu_grads[n]) for n in grads}
+    worst = min(cosines, key=cosines.get)
+    want = float(cpu["loss"])
+    return (abs(float(card["loss"]) - want) / abs(want), cosines[worst],
+            worst, float(card["loss"]), want)
+
+
+def train_phase(card, quant):
+    """Frozen Stage-II training of the flagship through the port's task:
+    a warm-up and TRAIN_STEPS timed steps with every launch count set to
+    0 just before and read just after, one validation batch, the frozen
+    trunks and the translator checked, then the card vs CPU step. Returns
+    the launch counts."""
+    import torch
+
+    from egot2x_torch.tasks.ttm_2loader import TalkingToMe2Loader
+    from egot2x_torch.translate.egot2s_hhi import FROZEN_KEYS
+
+    name = "train_int8" if quant else "train"
+    task = TalkingToMe2Loader(_train_cfg(quant))
+    state = task.build_state(SEED)
+    batches = _train_batches(TRAIN_STEPS + 1, SEED + 6)
+    calibrate_s = None
+    if quant:   # as the Trainer does: the scales are 0 after build_state
+        t0 = time.perf_counter()
+        task.calibrate_state(state, batches[0])
+        torch.cuda.synchronize()
+        calibrate_s = time.perf_counter() - t0
+    model = state.model
+    frozen = {k: v.clone() for k, v in model.state_dict().items()
+              if k.split(".", 1)[0] in FROZEN_KEYS}
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if p.requires_grad}
+    generator = torch.Generator("cuda").manual_seed(SEED + 7)
+    for fn in _counters().values():
+        fn.launches = 0
+    state, metrics = task.train_step(state, batches[0], generator)  # warm-up
+    losses = [metrics["loss"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for batch in batches[1:]:
+        state, metrics = task.train_step(state, batch, generator)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    per_step = (dict(stem_pool_q_2d=2, stem_pool_q_3d=1,
+                     int8_conv2d=CONVS_PER_FORWARD) if quant
+                else dict(stem_pool_2d=2, stem_pool_3d=1))
+    expect = _expected(TRAIN_STEPS + 1, **per_step)
+    ctx = task.start_validation()
+    task.accumulate(ctx, task.eval_step(state, batches[-1]), batches[-1])
+    val = task.finalize_validation(ctx)
+    losses = [float(x) for x in losses]
+    moved = [n for n, p in model.named_parameters()
+             if p.requires_grad and not torch.equal(p.detach(), before[n])]
+    changed = [k for k, v in model.state_dict().items()
+               if k in frozen and not torch.equal(v, frozen[k])]
+    phase(name, card=card, model="TaskFusionMFTransformer3Task",
+          task="TalkingToMe2Loader", quant_trunks=quant,
+          dtype="bfloat16" if quant else "float32", hidden=HIDDEN,
+          layers=LAYERS, heads=HEADS, clips=B, frames=T, steps=TRAIN_STEPS,
+          clips_per_s=TRAIN_STEPS * B / seconds,
+          ms_per_step=seconds / TRAIN_STEPS * 1e3, peak_mem_gib=peak_gib,
+          calibrate_s=calibrate_s, losses=losses, validation=val,
+          translator_leaves_moved=f"{len(moved)} of {len(before)}",
+          frozen_entries_changed=len(changed), frozen_entries=len(frozen),
+          launches=counts, expected_launches=expect)
+    if counts != expect:
+        fail(f"{name}: launches {counts}, expected {expect}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"{name}: losses {losses}")
+    if len(moved) != len(before):
+        fail(f"{name}: translator leaves that did not move: "
+             f"{sorted(set(before) - set(moved))[:5]}")
+    if changed:
+        fail(f"{name}: frozen entries changed: {changed[:5]}")
+    if not all(0.0 <= v <= 1.0 for v in val.values()):
+        fail(f"{name}: validation {val}")
+    loss_err, cosine, leaf, card_loss, cpu_loss = _train_check(
+        task, state, batches[0], quant)
+    phase(f"{name}_check", vs="cpu", clips=TRAIN_CHECK_CLIPS, frames=T,
+          dropout=0.0, loss_card=card_loss, loss_cpu=cpu_loss,
+          loss_rel_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL[quant],
+          min_grad_cosine=cosine, min_grad_cosine_leaf=leaf,
+          cosine_bar=TRAIN_GRAD_COSINE[quant])
+    if not loss_err <= TRAIN_LOSS_RTOL[quant]:
+        fail(f"{name}: card loss {card_loss} vs CPU {cpu_loss}")
+    if not cosine >= TRAIN_GRAD_COSINE[quant]:
+        fail(f"{name}: gradient of {leaf} at cosine {cosine} with the CPU's")
+    return counts
+
+
 def _line_row(name, row, counts, replaces, route="cuda",
               source="egot2x_torch/csrc/stem_pool.cu"):
     return dict(name=name, route=route, source=source, replaces=replaces,
@@ -1004,6 +1197,8 @@ def main():
     del requests
     asd_counts = asd_phase(card)
     asd2_phase(card)
+    train_counts = {"train": train_phase(card, quant=False),
+                    "train_int8": train_phase(card, quant=True)}
     float_stem, int8_stem = ("egot2x/ops/pallas_stem.py:232",
                              "egot2x/ops/pallas_stem.py:351")
     # each kernel at its main path's input type: f32 (float slice), bf16
@@ -1018,6 +1213,9 @@ def main():
         "none: no TPU kernel (XLA int8 conv, egot2x/nn/quant.py:102)",
         route="library (torch._int_mm)", source="egot2x_torch/ops/int8.py"))
     line.append(_flash_line_row(flash_rows, asd_counts))
+    for row in line:   # the training paths' launches, beside the serving's
+        row["train_launches"] = {path: counts[row["name"]]
+                                 for path, counts in train_counts.items()}
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,7 @@
 // :31).
 //
 // Shapes: q (BH, N, D), k and v (BH, S, D) -> o (BH, N, D), any N, S >= 1
-// and D <= 128, f32 or bf16 in, f32 logits, max, sum and accumulator, o in
+// and D >= 1, f32 or bf16 in, f32 logits, max, sum and accumulator, o in
 // q's dtype. Each of the four tensors is addressed through (batch, head,
 // row) element strides with contiguous D, so the port's (B, T, H, Dh)
 // attention layout is read in place: bh = b * nheads + head.
@@ -14,7 +14,8 @@
 // starts at -1e30, keys past S are masked (the TPU kernel's s_valid), and
 // the result is acc / max(l, 1e-30). D is padded only to the k-step of the
 // product's MMA (16 for bf16, 8 for f32), never to 128 as the TPU layout
-// pads it.
+// pads it. A head dim past 128 takes the wide kernel below, which works on
+// D in chunks of 128.
 //
 // Design, FlashAttention-2 style with mma.sync. A block is 4 warps and 64
 // query rows; each warp owns 16 rows for the whole key sweep. K and V
@@ -67,6 +68,15 @@
 // and 147 / 128 (bf16), no spills; shared memory 20,480 / 36,864 bytes
 // (f32) and 24,576 / 40,960 (bf16) a block, so registers, not shared
 // memory, cap the blocks an SM holds.
+//
+// D > 128 (flash_attention_wide_kernel): the Q fragments and the output
+// accumulator of a whole head would not fit in registers, so D is cut into
+// chunks of 128 and each block writes one chunk of the output (grid z).
+// Per key tile it sums the scores over every chunk, staging K's chunk and
+// loading Q's fragments of it in turn, and ends on its own chunk, whose V
+// stays staged for P V. Scores are recomputed once per output chunk, and
+// tiles are staged and consumed without double buffering: correctness
+// first; no path of the system runs it (TalkNet's heads are 16 and 32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -206,6 +216,9 @@ __device__ __forceinline__ void cp_async_commit() {
 // the oldest (tile it's) has landed
 __device__ __forceinline__ void cp_async_wait_tile() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // K and V rows k0 .. k0 + BK into one stage ([K | V], BK x RS each): dims
@@ -358,6 +371,81 @@ __device__ __forceinline__ void tile_pv(float (&acc)[Geo<T, DP>::DT][4],
   }
 }
 
+// Keys past s masked, then the online softmax of one tile: the running max
+// m and this lane's part of the running sum l of rows r0, r0 + 8 updated,
+// acc rescaled once, and the scores turned into p in place.
+template <typename T, int DP>
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[Geo<T, DP>::NT][4], float (&acc)[Geo<T, DP>::DT][4],
+    float (&m)[2], float (&l)[2], int k0, int s, float c, int t) {
+  using G = Geo<T, DP>;
+  constexpr int NT = G::NT, DT = G::DT;
+  if (k0 + G::BK > s) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int key = k0 + nt * 8 + 2 * t;
+      if (key >= s) sc[nt][0] = sc[nt][2] = NEG;
+      if (key + 1 >= s) sc[nt][1] = sc[nt][3] = NEG;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    mx[0] = fmaxf(mx[0], fmaxf(sc[nt][0], sc[nt][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sc[nt][2], sc[nt][3]));
+  }
+  float alpha[2], off[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+    alpha[r] = ex2((m[r] - mx[r]) * c);
+    off[r] = -mx[r] * c;
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      sc[nt][i] = ex2(fmaf(sc[nt][i], c, off[i >> 1]));
+      ps[i >> 1] += sc[nt][i];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], alpha[r], ps[r]);
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    acc[dt][0] *= alpha[0];
+    acc[dt][1] *= alpha[0];
+    acc[dt][2] *= alpha[1];
+    acc[dt][3] *= alpha[1];
+  }
+}
+
+// o rows r0, r0 + 8 (of n), columns below d: acc / the row's sum
+template <typename T, int DP>
+__device__ __forceinline__ void write_rows(
+    T* o, long long son, const float (&acc)[Geo<T, DP>::DT][4],
+    float (&l)[2], int r0, int n, int d, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    const int row = r0 + 8 * r;
+    if (row >= n) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int dt = 0; dt < Geo<T, DP>::DT; ++dt) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = dt * 8 + 2 * t + j;
+        if (col < d)
+          o[row * son + col] = from_f32<T>(acc[dt][2 * r + j] / denom);
+      }
+    }
+  }
+}
+
 template <typename T, int DP>
 __global__ void __launch_bounds__(THREADS)
     flash_attention_kernel(const Args a) {
@@ -411,69 +499,11 @@ __global__ void __launch_bounds__(THREADS)
     float sc[NT][4];
     tile_scores<T, DP>(sc, qf, ks, g, t);
     const int k0 = it * BK;
-    if (k0 + BK > a.s) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int key = k0 + nt * 8 + 2 * t;
-        if (key >= a.s) sc[nt][0] = sc[nt][2] = NEG;
-        if (key + 1 >= a.s) sc[nt][1] = sc[nt][3] = NEG;
-      }
-    }
-
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(sc[nt][0], sc[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(sc[nt][2], sc[nt][3]));
-    }
-    float alpha[2], off[2], ps[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
-      alpha[r] = ex2((m[r] - mx[r]) * c);
-      off[r] = -mx[r] * c;
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        sc[nt][i] = ex2(fmaf(sc[nt][i], c, off[i >> 1]));
-        ps[i >> 1] += sc[nt][i];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], alpha[r], ps[r]);
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
-
+    online_softmax<T, DP>(sc, acc, m, l, k0, a.s, c, t);
     tile_pv<T, DP>(acc, sc, ks + G::TILE, lane, t);
     __syncthreads();   // every warp is done with this stage
   }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(FULL, l[r], 1);
-    l[r] += __shfl_xor_sync(FULL, l[r], 2);
-    const int row = r0 + 8 * r;
-    if (row >= a.n) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = dt * 8 + 2 * t + j;
-        if (col < a.d)
-          o[row * a.so.n + col] = from_f32<T>(acc[dt][2 * r + j] / denom);
-      }
-    }
-  }
+  write_rows<T, DP>(o, a.so.n, acc, l, r0, a.n, a.d, t);
 }
 
 template <typename T, int DP>
@@ -487,6 +517,84 @@ int launch(const Args& a, int bh, cudaStream_t stream) {
   }
   const dim3 grid((a.n + ROWS - 1) / ROWS, bh);
   kern<<<grid, THREADS, G::SMEM, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// D > 128: head dims in chunks of WIDE; block (row tile, bh, chunk oc)
+// writes output dims [WIDE oc, WIDE oc + WIDE). See the note at the top.
+constexpr int WIDE = 128;
+
+template <typename T>
+struct Wide {
+  using G = Geo<T, WIDE>;
+  static constexpr int SMEM = 2 * G::TILE * (int)sizeof(T);  // one K, V
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    flash_attention_wide_kernel(const Args a) {
+  using G = Geo<T, WIDE>;
+  constexpr int BK = G::BK, NT = G::NT, DT = G::DT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const tile = reinterpret_cast<T*>(smem);
+
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = blockIdx.x * ROWS + (threadIdx.x / 32) * 16 + g;
+  const int b = blockIdx.y / a.nheads;
+  const int hd = blockIdx.y % a.nheads;
+  const int nc = (a.d + WIDE - 1) / WIDE, oc = blockIdx.z;
+  const T* q = static_cast<const T*>(a.q) + b * a.sq.b + hd * a.sq.h;
+  const T* k = static_cast<const T*>(a.k) + b * a.sk.b + hd * a.sk.h;
+  const T* v = static_cast<const T*>(a.v) + b * a.sv.b + hd * a.sv.h;
+  T* o = static_cast<T*>(a.o) + b * a.so.b + hd * a.so.h + oc * WIDE;
+
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[dt][i] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+
+  const int ntiles = (a.s + BK - 1) / BK;
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * BK;
+    float sc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[nt][i] = 0.f;
+    for (int i = 0; i < nc; ++i) {
+      const int ch = (oc + 1 + i) % nc;   // the last chunk is oc
+      Args ac = a;
+      ac.d = min(WIDE, a.d - ch * WIDE);
+      uint32_t qf[G::QK][4];
+      load_q<T, WIDE>(qf, q + ch * WIDE, ac, r0, t);
+      stage_tile<T, WIDE>(tile, k + ch * WIDE, v + ch * WIDE, ac, k0);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();   // the chunk is staged
+      float part[NT][4];
+      tile_scores<T, WIDE>(part, qf, tile, g, t);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[nt][j] += part[nt][j];
+      if (i + 1 < nc) __syncthreads();   // before the next chunk lands
+    }
+    online_softmax<T, WIDE>(sc, acc, m, l, k0, a.s, a.qscale, t);
+    tile_pv<T, WIDE>(acc, sc, tile + G::TILE, lane, t);
+    __syncthreads();   // every warp is done with the tile
+  }
+  write_rows<T, WIDE>(o, a.so.n, acc, l, r0, a.n,
+                      min(WIDE, a.d - oc * WIDE), t);
+}
+
+template <typename T>
+int launch_wide(const Args& a, int bh, cudaStream_t stream) {
+  const dim3 grid((a.n + ROWS - 1) / ROWS, bh, (a.d + WIDE - 1) / WIDE);
+  flash_attention_wide_kernel<T>
+      <<<grid, THREADS, Wide<T>::SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -504,6 +612,7 @@ int by_head_dim(int d, F&& f) {
 
 template <typename T>
 int dispatch(const Args& a, int bh, cudaStream_t s) {
+  if (a.d > WIDE) return launch_wide<T>(a, bh, s);
   const int err = by_head_dim<T>(a.d, [&](auto geo) {
     return launch<T, decltype(geo)::D_PAD>(a, bh, s);
   });
@@ -546,8 +655,10 @@ int egot2x_flash_attention(const void* q, const void* k, const void* v,
 }
 
 // dynamic shared memory of one block at head dim d and dtype (0: f32, 1:
-// bf16), bytes (-1: d > 128)
+// bf16), bytes
 int egot2x_flash_attention_smem_bytes(int d, int dtype) {
+  if (d > WIDE) return dtype == 0 ? Wide<float>::SMEM
+                                  : Wide<__nv_bfloat16>::SMEM;
   auto smem = [](auto geo) { return decltype(geo)::SMEM; };
   return dtype == 0 ? by_head_dim<float>(d, smem)
                     : by_head_dim<__nv_bfloat16>(d, smem);

@@ -1,15 +1,20 @@
 """Transformer building blocks: sinusoidal PE, MHA, the post-LN encoder.
 
-Counterpart of ``egot2x/nn/common.py``, inference only (no dropout).
-Modules are batch-major (B, T, D). Parameter names follow
-``torch.nn.MultiheadAttention`` / ``TransformerEncoderLayer`` (packed
-``in_proj_weight``), so reference checkpoints load as they are; the JAX
-package's separate q/k/v Dense layers are concatenated by the weight
-bridge (``egot2x_torch.core.bridge``).
+Counterpart of ``egot2x/nn/common.py``. Modules are batch-major
+(B, T, D). Parameter names follow ``torch.nn.MultiheadAttention`` /
+``TransformerEncoderLayer`` (packed ``in_proj_weight``), so reference
+checkpoints load as they are; the JAX package's separate q/k/v Dense
+layers are concatenated by the weight bridge (``egot2x_torch.core.bridge``).
 
 LayerNorm epsilon is 1e-6 everywhere, the Flax default the JAX package
 runs with, not torch's 1e-5. Layers compute in the dtype of their input
 (``egot2x_torch.nn.layers``).
+
+Dropout sits where the JAX package's does: after the PE, on the attention
+probabilities, after attention and twice in the FFN. It acts in train
+mode only, so eval mode is the inference path, and its masks come from
+the ``torch.Generator`` that :func:`set_dropout_generator` hands every
+:class:`Dropout` of a model, never from the global RNG.
 """
 
 from __future__ import annotations
@@ -30,6 +35,37 @@ def layer_norm(d_model: int) -> nn.LayerNorm:
     return LayerNorm(d_model, eps=LN_EPS)
 
 
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout`` in train mode: keep each element with
+    probability 1 - p, scaled by 1 / (1 - p); the identity in eval mode
+    or at p = 0. The mask is drawn from ``self.generator``, which must be
+    on the input's device."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("dropout in train mode needs a generator: "
+                               "call set_dropout_generator(model, g)")
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module, generator: torch.Generator):
+    """Draw the masks of every :class:`Dropout` in ``model`` from
+    ``generator``. Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+    return model
+
+
 def sinusoidal_positional_encoding(max_len: int, d_model: int) -> torch.Tensor:
     """Classic transformer PE table (max_len, d_model), f32."""
     position = torch.arange(max_len, dtype=torch.float32)[:, None]
@@ -42,10 +78,12 @@ def sinusoidal_positional_encoding(max_len: int, d_model: int) -> torch.Tensor:
 
 
 class PositionalEncoding(nn.Module):
-    """Add sinusoidal PE over the time axis of (B, T, D)."""
+    """Add sinusoidal PE over the time axis of (B, T, D), then dropout."""
 
-    def __init__(self, d_model: int, max_len: int = 5000):
+    def __init__(self, d_model: int, max_len: int = 5000,
+                 dropout: float = 0.1):
         super().__init__()
+        self.dropout = Dropout(dropout)
         # not persistent: the table is a function of the shape, and the
         # reference checkpoints' ``pos_embed.pe`` buffer carries nothing
         self.register_buffer(
@@ -53,13 +91,14 @@ class PositionalEncoding(nn.Module):
             persistent=False)
 
     def forward(self, x):
-        return x + self.pe[: x.shape[1]].to(x.dtype)
+        return self.dropout(x + self.pe[: x.shape[1]].to(x.dtype))
 
 
 class MultiHeadAttention(nn.Module):
-    """MHA with ``torch.nn.MultiheadAttention``'s parameters (bias=True)."""
+    """MHA with ``torch.nn.MultiheadAttention``'s parameters (bias=True);
+    ``dropout`` drops attention probabilities in train mode."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} not divisible by {num_heads}")
@@ -68,6 +107,7 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = Linear(d_model, d_model)
         nn.init.xavier_uniform_(self.in_proj_weight)
+        self.dropout = Dropout(dropout)
 
     def forward(self, query, key, value):
         """query (B, T, D), key and value (B, S, D) -> (B, T, D)."""
@@ -78,35 +118,43 @@ class MultiHeadAttention(nn.Module):
         q = heads(F.linear(query, w_q, b_q))
         k = heads(F.linear(key, w_k, b_k))
         v = heads(F.linear(value, w_v, b_v))
-        return self.out_proj(dot_product_attention(q, k, v).reshape(b, t, d))
+        drop = self.dropout
+        probs_dropout = drop if drop.training and drop.p > 0.0 else None
+        return self.out_proj(
+            dot_product_attention(q, k, v, probs_dropout).reshape(b, t, d))
 
 
 class TransformerEncoderLayer(nn.Module):
     """Post-LN layer (torch ``nn.TransformerEncoderLayer`` default layout):
-    x = norm1(x + attn(x)); x = norm2(x + linear2(relu(linear1(x))))."""
+    x = norm1(x + dropout1(attn(x)));
+    x = norm2(x + dropout2(linear2(dropout(relu(linear1(x))))))."""
 
     def __init__(self, d_model: int, num_heads: int,
-                 dim_feedforward: int = 2048):
+                 dim_feedforward: int = 2048, dropout: float = 0.1):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, num_heads)
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout)
         self.linear1 = Linear(d_model, dim_feedforward)
         self.linear2 = Linear(dim_feedforward, d_model)
         self.norm1 = layer_norm(d_model)
         self.norm2 = layer_norm(d_model)
+        self.dropout, self.dropout1, self.dropout2 = (
+            Dropout(dropout) for _ in range(3))
 
     def forward(self, x):
-        x = self.norm1(x + self.self_attn(x, x, x))
-        return self.norm2(x + self.linear2(torch.relu(self.linear1(x))))
+        x = self.norm1(x + self.dropout1(self.self_attn(x, x, x)))
+        h = self.dropout(torch.relu(self.linear1(x)))
+        return self.norm2(x + self.dropout2(self.linear2(h)))
 
 
 class TransformerEncoder(nn.Module):
     """Stack of post-LN encoder layers (``layers.{i}``)."""
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int,
-                 dim_feedforward: int = 2048):
+                 dim_feedforward: int = 2048, dropout: float = 0.1):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(d_model, num_heads, dim_feedforward)
+            TransformerEncoderLayer(d_model, num_heads, dim_feedforward,
+                                    dropout)
             for _ in range(num_layers))
 
     def forward(self, x):

@@ -301,3 +301,13 @@ class TalkNetModel(nn.Module):
         x2 = self.crossV2A(src=visual, tar=audio)
         av = torch.cat([x1, x2], dim=2)
         return self.selfAV(src=av, tar=av), x1, x2
+
+
+class FrozenTalkNet(TalkNetModel):
+    """TalkNet as a Stage-II translator's frozen ``asd_model``: always in
+    eval mode (BN on running statistics, no dropout), whatever ``train()``
+    is asked, as the JAX translators run it with ``train=False`` and
+    ``deterministic=True``. Stage-I ASD trains ``TalkNetModel`` itself."""
+
+    def train(self, mode: bool = True):
+        return super().train(False)

@@ -14,10 +14,11 @@ Two layouts, one function:
   multi-head layout, which the kernel reads in place through strides.
 
 f32 or bf16 in, f32 logits, max, sum and accumulator, output in q's
-dtype; any N, S >= 1 and D <= 128. The kernel runs both products on the
-tensor cores (``mma.sync``: bf16 input as it is, f32 input as 3xTF32,
+dtype; any N, S, D >= 1; forward only. The kernel runs both products on
+the tensor cores (``mma.sync``: bf16 input as it is, f32 input as 3xTF32,
 which holds the f32 gate); its bound is the exponentials. What its design
-does about that is in its source note.
+does about that is in its source note. A head dim past 128 takes a second
+body that works on D in chunks of 128.
 
 ``flash_attention.launches`` counts kernel launches (CPU calls do not
 count), so a run can show that its attention went through the kernel.
@@ -34,7 +35,6 @@ import torch
 from egot2x_torch.ops import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
 
 
 def flash_attention_plain(q, k, v):
@@ -85,9 +85,9 @@ def _geometry(q, k, v):
     if not same:
         raise ValueError(f"q {tuple(q.shape)} and k, v {tuple(k.shape)} "
                          "differ outside the sequence axis")
-    if not 1 <= d <= MAX_HEAD_DIM or n < 1 or s < 1:
-        raise ValueError(f"flash kernel takes 1 <= D <= {MAX_HEAD_DIM} and "
-                         f"non-empty sequences, got N {n}, S {s}, D {d}")
+    if d < 1 or n < 1 or s < 1:
+        raise ValueError(f"flash kernel takes non-empty sequences and head "
+                         f"dims, got N {n}, S {s}, D {d}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype != q.dtype or x.dtype not in _DTYPES:
             raise TypeError(f"flash kernel takes float32 or bfloat16 q, k, "
@@ -109,7 +109,12 @@ def _strides(x):
 def flash_attention(q, k, v):
     """softmax(q k^T / sqrt(D)) v over (BH, N, D) or (B, N, H, D) inputs,
     in q's layout and dtype. CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel or raise. The kernel has no backward: it
+    raises on inputs that autograd would differentiate, on either device,
+    rather than return an output whose gradient was dropped."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise ValueError("flash_attention has no backward: q, k or v "
+                         "requires grad")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     if q.device.type != "cuda":

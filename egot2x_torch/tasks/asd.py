@@ -13,17 +13,14 @@ from typing import Dict
 import numpy as np
 import torch
 
+from egot2x_torch.tasks.lam import weighted_cross_entropy
+
 ASD_CLASS_WEIGHTS = np.asarray([1.0, 4.0], dtype=np.float32)
 ASD_BUCKETS = (15, 30, 60, 90, 120, 150)
 
 
-def frame_weighted_ce(logits, labels, weights):
-    """Per-frame weighted CE over (..., 2) logits and integer labels,
-    torch's weighted-mean semantics."""
-    logp = torch.log_softmax(logits, dim=-1)
-    picked = logp.gather(-1, labels[..., None])[..., 0]
-    w = torch.as_tensor(weights, device=logits.device)[labels]
-    return -(w * picked).sum() / w.sum()
+# per-frame weighted CE over (..., 2) logits, the JAX package's name
+frame_weighted_ce = weighted_cross_entropy
 
 
 class ActiveSpeakerDetection:

@@ -89,23 +89,30 @@ def run(forward, tf32: bool):
                 forward()
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) / FORWARDS * 1e3
+    return dict(tf32=tf32, ms_per_request=wall_ms,
+                **device_breakdown(prof, FORWARDS, traced_ms),
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def device_breakdown(prof, n: int, traced_ms: float) -> dict:
+    """Device time of a trace of ``n`` repeats of a request or step whose
+    wall time under the profiler was ``traced_ms`` each: the busy time
+    and share, by kernel class, and the top kernels, per repeat."""
     kernels, cats = {}, defaultdict(float)
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0)
         if us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        ms = us / 1e3 / FORWARDS
-        kernels[ev.key] = (ms, ev.count // FORWARDS)
+        ms = us / 1e3 / n
+        kernels[ev.key] = (ms, ev.count // n)
         cats[_category(ev.key)] += ms
     busy = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     return dict(
-        tf32=tf32, ms_per_request=wall_ms,
         traced_ms_per_request=traced_ms, device_busy_ms=busy,
         device_busy_share=busy / traced_ms if traced_ms else None,
         by_category={k: v for k, v in sorted(cats.items(),
                                              key=lambda kv: -kv[1])},
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         top_kernels=[dict(name=k[:90], ms=ms, launches=n)
                      for k, (ms, n) in top])
 

@@ -1,6 +1,6 @@
 """EgoT2-s HHI translators: cross-task token fusion over frozen backbones.
 
-Counterpart of ``egot2x/translate/egot2s_hhi.py``, inference:
+Counterpart of ``egot2x/translate/egot2s_hhi.py``:
 
   * ``TaskFusionMFTransformer3Task`` (the flagship): the LAM and TTM
     ResNet-18 per-frame tokens and the TalkNet per-frame AV features, each
@@ -28,7 +28,17 @@ parameters stay f32. The 3-task translator takes ``quant=True`` for the
 int8 static-PTQ trunks (``nn.quant``; calibrate first) and, with it,
 ``fuse_stems=True`` to run the LAM and TTM stems as one int8 launch
 (``nn.fused_stem``). The fused stem applies only under int8 inference,
-not while calibrating; parameters keep the two-trunk layout either way.
+not while calibrating or training; parameters keep the two-trunk layout
+either way.
+
+Training (Stage II) freezes the backbones, the keys ``FROZEN_KEYS``: they
+run in eval mode whatever ``train()`` says, and under ``torch.no_grad``,
+the counterpart of the JAX package's ``stop_gradient``; only the fusion
+core learns. ``dropout`` is the encoder's rate; the PE's is 0.1 whatever
+it is, as in the JAX package. ``nofreeze`` (train the trunks too) and
+``remat`` (recompute their activations in the backward) need backward
+passes through the stem kernels and raise until those are ported
+(ROADMAP.md §1 item 2).
 """
 
 from __future__ import annotations
@@ -45,9 +55,19 @@ from egot2x_torch.nn.fused_stem import fused_rgb_stem
 from egot2x_torch.nn.layers import Linear
 from egot2x_torch.nn.quant import assert_calibrated, scale_buffers
 from egot2x_torch.nn.resnet2d import normalize_u8_frames
-from egot2x_torch.nn.talknet import TalkNetModel
+from egot2x_torch.nn.talknet import FrozenTalkNet
 
 TASK_IDS = {"ttm": 0, "lam": 1, "asd": 2}
+# top-level modules the task layer freezes
+FROZEN_KEYS = ("lam_model", "ttm_model", "asd_model")
+
+
+def _frozen_trunks_only(nofreeze: bool, remat: bool) -> None:
+    if nofreeze or remat:
+        raise NotImplementedError(
+            "nofreeze and remat differentiate the trunks, which needs "
+            "backward passes through the stem kernels: not ported yet "
+            "(ROADMAP.md §1 item 2)")
 
 
 def _encode_prepare(x, ln, task_embed, task_id, pos_embed):
@@ -60,7 +80,8 @@ class _MFTransformerCore(nn.Module):
     translators. ``streams`` names the token streams in concat order."""
 
     def __init__(self, streams, hidden_dim: int, num_heads: int,
-                 num_layers: int, dtype=torch.float32, head: bool = True):
+                 num_layers: int, dtype=torch.float32, head: bool = True,
+                 dropout: float = 0.1):
         super().__init__()
         self.streams = tuple(streams)
         self.compute_dtype = dtype
@@ -68,9 +89,11 @@ class _MFTransformerCore(nn.Module):
             setattr(self, f"proj_{s}", Linear(256, hidden_dim))
         self.task_embed = nn.Parameter(
             torch.randn(1, len(self.streams), hidden_dim))
-        self.pos_embed = PositionalEncoding(hidden_dim, max_len=1000)
+        self.pos_embed = PositionalEncoding(hidden_dim, max_len=1000,
+                                            dropout=0.1)
         self.transformer_encoder = TransformerEncoder(
-            num_layers, hidden_dim, num_heads, dim_feedforward=2048)
+            num_layers, hidden_dim, num_heads, dim_feedforward=2048,
+            dropout=dropout)
         self.ln = layer_norm(hidden_dim)
         if head:
             self.linear_head = nn.Sequential(layer_norm(hidden_dim),
@@ -96,17 +119,22 @@ class TaskFusionMFTransformer2Task(_MFTransformerCore):
     """LAM + TTM token fusion -> TTM logits."""
 
     def __init__(self, hidden_dim: int = 256, num_heads: int = 4,
-                 num_layers: int = 3, dtype=torch.float32):
+                 num_layers: int = 3, dtype=torch.float32,
+                 dropout: float = 0.1, nofreeze: bool = False,
+                 remat: bool = False):
+        _frozen_trunks_only(nofreeze, remat)
         super().__init__(("ttm", "lam"), hidden_dim, num_heads, num_layers,
-                         dtype)
+                         dtype, dropout=dropout)
         self.lam_model = LAMBackbone(dtype=dtype)
         self.ttm_model = TTMBackbone(dtype=dtype)
 
     def forward(self, video, audio=None):
         """video (B, T, H, W, 3), f32 normalized or uint8."""
-        video = normalize_u8_frames(video, self.compute_dtype)  # once
-        return self.fuse({"ttm": self.ttm_model(video, audio),
-                          "lam": self.lam_model(video)})
+        with torch.no_grad():   # the frozen trunks
+            video = normalize_u8_frames(video, self.compute_dtype)  # once
+            tokens = {"ttm": self.ttm_model(video, audio),
+                      "lam": self.lam_model(video)}
+        return self.fuse(tokens)
 
 
 @MODEL_REGISTRY.register(name="TaskFusionMFTransformer3Task")
@@ -115,12 +143,15 @@ class TaskFusionMFTransformer3Task(_MFTransformerCore):
 
     def __init__(self, hidden_dim: int = 256, num_heads: int = 4,
                  num_layers: int = 3, quant: bool = False,
-                 fuse_stems: bool = False, dtype=torch.float32):
+                 fuse_stems: bool = False, dtype=torch.float32,
+                 dropout: float = 0.1, nofreeze: bool = False,
+                 remat: bool = False):
+        _frozen_trunks_only(nofreeze, remat)
         super().__init__(("ttm", "lam", "asd"), hidden_dim, num_heads,
-                         num_layers, dtype)
+                         num_layers, dtype, dropout=dropout)
         self.lam_model = LAMBackbone(quant=quant, dtype=dtype)
         self.ttm_model = TTMBackbone(quant=quant, dtype=dtype)
-        self.asd_model = TalkNetModel(quant, dtype)
+        self.asd_model = FrozenTalkNet(quant, dtype)
         self.quant, self.fuse_stems = quant, fuse_stems
         self.calibrating = False
         self._checked_scales = None
@@ -132,17 +163,18 @@ class TaskFusionMFTransformer3Task(_MFTransformerCore):
         int8 = self.quant and not self.calibrating
         if int8:
             self._assert_calibrated()
-        video = normalize_u8_frames(video, self.compute_dtype)  # once
-        asd, _, _ = self.asd_model(audio_asd, video_asd)
-        stem_lam = stem_ttm = None
-        if int8 and self.fuse_stems:
-            n, t = video.shape[:2]
-            stem_lam, stem_ttm = fused_rgb_stem(
-                video.reshape(n * t, *video.shape[2:]),
-                [self.lam_model.base_model, self.ttm_model.video_encoder])
-        return self.fuse({"ttm": self.ttm_model(video, audio, stem_ttm),
-                          "lam": self.lam_model(video, stem_lam),
-                          "asd": asd})
+        with torch.no_grad():   # the frozen trunks
+            video = normalize_u8_frames(video, self.compute_dtype)  # once
+            asd, _, _ = self.asd_model(audio_asd, video_asd)
+            stem_lam = stem_ttm = None
+            if int8 and self.fuse_stems and not self.training:
+                n, t = video.shape[:2]
+                stem_lam, stem_ttm = fused_rgb_stem(
+                    video.reshape(n * t, *video.shape[2:]),
+                    [self.lam_model.base_model, self.ttm_model.video_encoder])
+            tokens = {"ttm": self.ttm_model(video, audio, stem_ttm),
+                      "lam": self.lam_model(video, stem_lam), "asd": asd}
+        return self.fuse(tokens)
 
     def _assert_calibrated(self):
         """``assert_calibrated`` once for each state of the scales: the
@@ -168,15 +200,17 @@ class TaskFusionMFTransformer3TaskASD(_MFTransformerCore):
                          num_layers, dtype, head=False)
         self.lam_model = LAMBackbone(dtype=dtype)
         self.ttm_model = TTMBackbone(dtype=dtype)
-        self.asd_model = TalkNetModel(dtype=dtype)
+        self.asd_model = FrozenTalkNet(dtype=dtype)
         self.output_dim = hidden_dim
 
     def forward(self, video, video_asd, audio, audio_asd):
         """Inputs as the 3-task translator's."""
-        video = normalize_u8_frames(video, self.compute_dtype)  # once
-        asd, _, _ = self.asd_model(audio_asd, video_asd)
-        out = self.encode({"asd": asd, "ttm": self.ttm_model(video, audio),
-                           "lam": self.lam_model(video)})
+        with torch.no_grad():   # the frozen trunks
+            video = normalize_u8_frames(video, self.compute_dtype)  # once
+            asd, _, _ = self.asd_model(audio_asd, video_asd)
+            tokens = {"asd": asd, "ttm": self.ttm_model(video, audio),
+                      "lam": self.lam_model(video)}
+        out = self.encode(tokens)
         n, t = asd.shape[:2]
         return out[:, :t].reshape(n * t, self.output_dim)
 
@@ -198,7 +232,8 @@ class _FrameBaseline(nn.Module):
         raise NotImplementedError
 
     def forward(self, video, video_asd, audio, audio_asd):
-        feats = self.features(video, video_asd, audio, audio_asd)
+        with torch.no_grad():   # the frozen backbone
+            feats = self.features(video, video_asd, audio, audio_asd)
         n, t = feats.shape[:2]
         return torch.relu(self.fc1(feats)).reshape(n * t, self.output_dim)
 
@@ -209,7 +244,7 @@ class FinetuneASD(_FrameBaseline):
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        self.asd_model = TalkNetModel(dtype=self.compute_dtype)
+        self.asd_model = FrozenTalkNet(dtype=self.compute_dtype)
 
     def features(self, video, video_asd, audio, audio_asd):
         return self.asd_model(audio_asd, video_asd)[0]

@@ -1,7 +1,11 @@
 """Card tests: the hand-written CUDA stem and flash-attention kernels
 against their plain versions, the int8 conv's ``torch._int_mm`` route
-against its exact plain version, the attention route on the card, and
-small flagships (float and int8) on the card against the CPU.
+against its exact plain version, the attention route on the card (any
+head dim launches the kernel, attention that needs grad raises), small
+flagships
+(float and int8) on the card against the CPU, and a frozen Stage-II train
+step on the card against the CPU (loss 1e-4 relative, gradient cosines
+>= 0.99999).
 
 Marked ``cuda``; each test skips when the process sees no CUDA card. This
 file imports neither JAX nor the JAX package, so on a machine without JAX
@@ -424,8 +428,8 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         flash.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError):
-        big = torch.zeros(2, 64, 160, device=cuda)
-        flash.flash_attention(big, big, big)
+        empty = torch.zeros(2, 64, 0, device=cuda)
+        flash.flash_attention(empty, empty, empty)
     with pytest.raises(ValueError):
         flash.flash_attention(q, q.cpu(), q)
 
@@ -445,12 +449,14 @@ def _flash_inputs(rng, layout, n, s, d, dtype, device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["bhnd", "heads_last"])
-@pytest.mark.parametrize("d", [1, 8, 16, 24, 32, 40, 64, 100, 128])
+@pytest.mark.parametrize("d", [1, 8, 16, 24, 32, 40, 64, 100, 128, 129, 256,
+                               300])
 @pytest.mark.parametrize("n, s", [(1, 2049), (17, 1), (2047, 17),
                                   (2049, 2047)])
 def test_flash_kernel_tiles_match_plain(cuda, dtype, layout, d, n, s):
     """Every padded head-dim tile (D to the MMA k-step: 8 for f32, 16 for
-    bf16), ragged query and key counts (a last key tile of 1 key, a
+    bf16), D past 128 in chunks of 128 (a last chunk of 1, 128 and 44
+    dims), ragged query and key counts (a last key tile of 1 key, a
     single query row), both layouts; K and V rows on 16 bytes take
     cp.async, the others the staging through registers."""
     rng = np.random.default_rng(d * 7 + n + s)
@@ -462,3 +468,92 @@ def test_flash_kernel_tiles_match_plain(cuda, dtype, layout, d, n, s):
     assert out.dtype == dtype and out.shape == q.shape
     want = flash.flash_attention_plain(q, k, v)
     torch.testing.assert_close(out.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("d", [129, 256])
+def test_attention_at_wide_head_dims_launches_the_kernel(cuda, d):
+    """At 2048 queries and keys with D > 128 (the Pallas kernel pads any
+    D) attention launches the kernel once and agrees with the plain
+    version."""
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((1, 2048, 2, d))
+                         .astype(np.float32)).to(cuda)
+    before = flash.flash_attention.launches
+    out = attention.dot_product_attention(x, x, x)
+    torch.cuda.synchronize()
+    assert flash.flash_attention.launches == before + 1
+    assert out.shape == x.shape
+    torch.testing.assert_close(out, flash.flash_attention_plain(x, x, x),
+                               **FLASH_TOL[torch.float32])
+
+
+def test_flash_refuses_attention_that_needs_grad(cuda):
+    """The wrapper, and attention routed to it, raise on inputs that need
+    grad (the kernel has no backward); under no_grad it launches."""
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.standard_normal((1, 2048, 2, 16))
+                         .astype(np.float32)).to(cuda)
+    w = q.clone().requires_grad_()
+    before = flash.flash_attention.launches
+    with pytest.raises(ValueError, match="no backward"):
+        flash.flash_attention(q, w, q)
+    with pytest.raises(ValueError, match="no backward"):
+        attention.dot_product_attention(w, q, q)
+    assert flash.flash_attention.launches == before
+    with torch.no_grad():
+        out = attention.dot_product_attention(w, q, q)
+    assert flash.flash_attention.launches == before + 1
+    torch.testing.assert_close(out, flash.flash_attention_plain(q, q, q),
+                               **FLASH_TOL[torch.float32])
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One frozen Stage-II train step of a small flagship (D=64, 1 layer)
+    with dropout off, on the card and on the CPU from the same weights:
+    the stems go through the kernel (2 + 1 launches), the loss agrees to
+    1e-4 relative and every gradient leaf at cosine >= 0.99999, and the
+    frozen trunks stay bit for bit."""
+    from egot2x_torch.core.config import Config
+    from egot2x_torch.nn.common import Dropout
+    from egot2x_torch.tasks.ttm_2loader import TalkingToMe2Loader
+
+    cfg = Config(model="TaskFusionMFTransformer3Task", weights=[0.266, 0.734],
+                 lr=1e-3, wd=1e-2, hidden_dim=64, num_heads=4, num_layers=1,
+                 dropout=0.0)
+    tasks = [TalkingToMe2Loader(cfg, device=d) for d in (cuda, "cpu")]
+    states = [t.build_state(0) for t in tasks]
+    rng = np.random.default_rng(12)
+    batch = dict(
+        frames=rng.standard_normal((2, 4, 64, 64, 3)).astype(np.float32),
+        video_asd=rng.uniform(0, 255, (2, 4, 112, 112)).astype(np.float32),
+        audio=np.zeros((2, 4 * 16000 // 30), np.float32),
+        audio_asd=rng.standard_normal((2, 16, 13)).astype(np.float32),
+        label=np.array([0, 1]))
+    out, grads = [], []
+    frozen = {k: v.clone() for k, v in states[0].model.state_dict().items()
+              if k.split(".", 1)[0] in ("lam_model", "ttm_model", "asd_model")}
+    counts = stem.stem_pool_2d.launches, stem.stem_pool_3d.launches
+    for task, state in zip(tasks, states):
+        for m in state.model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+        device = next(state.model.parameters()).device
+        _, metrics = task.train_step(
+            state, {k: torch.from_numpy(v).to(device)
+                    for k, v in batch.items()}, torch.Generator(device))
+        out.append(float(metrics["loss"]))
+        grads.append({n: p.grad.double().cpu()
+                      for n, p in state.model.named_parameters()
+                      if p.grad is not None})
+    assert (stem.stem_pool_2d.launches - counts[0],
+            stem.stem_pool_3d.launches - counts[1]) == (2, 1)
+    assert np.isfinite(out[0])
+    assert abs(out[0] - out[1]) <= 1e-4 * abs(out[1])
+    assert sorted(grads[0]) == sorted(grads[1])
+    for name, g in grads[1].items():
+        cos = float(grads[0][name].flatten() @ g.flatten()
+                    / (grads[0][name].norm() * g.norm()))
+        assert cos >= 0.99999, name
+    after = states[0].model.state_dict()
+    for k, v in frozen.items():
+        assert torch.equal(after[k], v), k
