@@ -64,3 +64,20 @@ def graft_backbone(model: nn.Module, backbone_key: str, stage1_ckpt: str,
                        f"{missing[:3]} ({len(missing)} keys)")
     target.load_state_dict({k: state[k] for k in want})
     return model
+
+
+# (backbone, config key of its Stage-I checkpoint, the backbone's
+# submodule in the Stage-I model: TalkNetWithHeads holds TalkNet as
+# ``model``; a LAM or TTM model's trunk names sit at its top)
+GRAFTS = (("lam_model", "lam_checkpoint", None),
+          ("ttm_model", "ttm_checkpoint", None),
+          ("asd_model", "asd_checkpoint", "model"))
+
+
+def graft_stage1(translator: nn.Module, cfg) -> nn.Module:
+    """The Stage-I checkpoints ``cfg`` names (``GRAFTS``), grafted into
+    those of the translator's backbones it has."""
+    for key, flag, src in GRAFTS:
+        if cfg.get(flag) and hasattr(translator, key):
+            graft_backbone(translator, key, cfg.get(flag), params_src=src)
+    return translator

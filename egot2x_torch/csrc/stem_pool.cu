@@ -14,6 +14,17 @@
 //                 read once and each trunk's channels use their own BN and
 //                 step s.
 //
+// Training (the float stems): the TRAIN instances are the same body with a
+// training epilogue. They park the f32 conv values in the tile (whatever
+// the output's type), then for each pooled output take BN + ReLU of each
+// in-image position of its 3x3 window, rounded to the output's type, and
+// keep the first maximum in row-major order (a strict >, as F.max_pool2d
+// picks it). They write the output (the inference instance's bit for bit),
+// the winner's window position (uint8, 0-8) and its conv value before BN
+// (f32): 5 more bytes a pooled value, so that the backward needs neither
+// the pre-pool map (4x the pooled values) nor a second conv.
+// stem_pool_backward_kernel (below the launchers) is the gradient.
+//
 // Geometries (every variant instantiates both):
 //   2D  ResNet-18 conv1: (N, H, W, 3) NHWC, 7x7/2 pad 3, 3 -> 64 channels;
 //   3D  TalkNet frontend3D: (B, T, H, W) grey, 5x7x7 stride (1,2,2),
@@ -146,19 +157,24 @@ struct Geo {
 };
 
 // Shared memory of one instance: fragments | halo planes, conv tile | BN
-// scale and bias, steps, per-warp max. PARTS channel groups are parked and
-// pooled one after the other (float output only); ALIAS puts the conv tile
-// over the halo planes. The first of (1, apart), (1, aliased), (2,
-// aliased) that fits two blocks an SM is taken, else (1, apart) at one
-// block (and always for NG = 2, 512 threads).
-template <int KT, int CIN, int NG, bool F32IN, typename Tout>
+// scale and bias, steps, per-warp max (and, TRAIN, the 2^e_w factors).
+// PARTS channel groups are parked and pooled one after the other (float
+// output only); ALIAS puts the conv tile over the halo planes. The first
+// of (1, apart), (1, aliased), (2, aliased) that fits two blocks an SM is
+// taken, else (1, apart) at one block (and always for NG = 2, 512
+// threads). The training variant parks the f32 conv values, whatever the
+// output's type.
+template <int KT, int CIN, int NG, bool F32IN, typename Tout, bool TRAIN>
 struct LayoutSizes {
   using G = Geo<KT, CIN>;
+  using Tpark = typename std::conditional<TRAIN, float, Tout>::type;
   static constexpr bool INT8 = std::is_same<Tout, int8_t>::value;
+  static_assert(!(TRAIN && INT8), "the int8 stem has no training variant");
   static constexpr int NTH = THREADS * NG;
   static constexpr int FRAG_BYTES = NG * G::WFRAG * 2;
   static constexpr int HALO_BYTES = (F32IN ? 2 : 1) * G::HALO * 2;
-  static constexpr int SCALAR_BYTES = (2 * NG * COUT + 2 * NG + 16) * 4;
+  static constexpr int SCALAR_BYTES =
+      (2 * NG * COUT + 2 * NG + 16 + (TRAIN ? NG * COUT : 0)) * 4;
   static constexpr int tile_ch(int parts) {
     return INT8 ? NG * COUT : COUT / parts;
   }
@@ -168,7 +184,7 @@ struct LayoutSizes {
     return tile_ch(parts) + (INT8 ? 16 : 8);
   }
   static constexpr int tile_bytes(int parts) {
-    return NPIX * cstride(parts) * (int)sizeof(Tout);
+    return NPIX * cstride(parts) * (int)sizeof(Tpark);
   }
   static constexpr int region(int parts, bool alias) {
     return alias ? cmax(HALO_BYTES, tile_bytes(parts))
@@ -188,9 +204,10 @@ struct LayoutSizes {
   }
 };
 
-template <int KT, int CIN, int NG, bool F32IN, typename Tout>
-struct Layout : LayoutSizes<KT, CIN, NG, F32IN, Tout> {
-  using S = LayoutSizes<KT, CIN, NG, F32IN, Tout>;
+template <int KT, int CIN, int NG, bool F32IN, typename Tout,
+          bool TRAIN = false>
+struct Layout : LayoutSizes<KT, CIN, NG, F32IN, Tout, TRAIN> {
+  using S = LayoutSizes<KT, CIN, NG, F32IN, Tout, TRAIN>;
   static constexpr int PARTS = S::choice() == 2 ? 2 : 1;
   static constexpr bool ALIAS = S::choice() != 0;
   static constexpr int TILE_CH = S::tile_ch(PARTS);
@@ -199,7 +216,8 @@ struct Layout : LayoutSizes<KT, CIN, NG, F32IN, Tout> {
   static constexpr int BYTES = S::bytes(PARTS, ALIAS);
   static constexpr int BLOCKS = S::fits(PARTS, ALIAS) ? 2 : 1;
   static_assert(S::HALO_BYTES % 16 == 0 && REGION % 16 == 0, "alignment");
-  static_assert((CSTRIDE * (int)sizeof(Tout)) % 8 == 0, "tile rows");
+  static_assert((CSTRIDE * (int)sizeof(typename S::Tpark)) % 8 == 0,
+                "tile rows");
   static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
@@ -314,6 +332,15 @@ __device__ __forceinline__ uint32_t quantize(float acc, float s, float o,
   return __float_as_uint(fminf(q, 127.f) + 12582912.f) - 0x4B400000u;
 }
 
+// v as the output type would hold it
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  else
+    return v;
+}
+
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -423,39 +450,54 @@ __device__ __forceinline__ float stage_f32(uint16_t* x_s, float* wmax,
 // x: (B, T, H, W, CIN) f32 (F32IN) or bf16; wf: (NG, KSTEPS, 8, 32, 8)
 // fp16 (F32IN, weights scaled by 2^-e_w) or bf16 fragments; wexp: (64*NG,)
 // 2^e_w (F32IN, else unread); scale, bias: (64*NG,) f32; qscale: (NG,) f32
-// (int8 output, else unread); out: (B*T, Ho, Wo, 64*NG) Tout.
-template <int KT, int CIN, int NG, bool F32IN, typename Tout>
-__global__ void __launch_bounds__(Layout<KT, CIN, NG, F32IN, Tout>::NTH,
-                                  Layout<KT, CIN, NG, F32IN, Tout>::BLOCKS)
+// (int8 output, else unread); out: (B*T, Ho, Wo, 64*NG) Tout. TRAIN also
+// writes win (B*T, Ho, Wo, 64) uint8, each pooled output's winner 0-8 in
+// its 3x3 window (row-major, the first maximum: a strict >, as
+// F.max_pool2d), and yw (B*T, Ho, Wo, 64) f32, the winner's conv value
+// before BN (unread otherwise).
+template <int KT, int CIN, int NG, bool F32IN, typename Tout, bool TRAIN>
+__global__ void __launch_bounds__(
+    Layout<KT, CIN, NG, F32IN, Tout, TRAIN>::NTH,
+    Layout<KT, CIN, NG, F32IN, Tout, TRAIN>::BLOCKS)
 stem_pool_tc_kernel(const void* __restrict__ xin,
                     const uint4* __restrict__ wf,
                     const float* __restrict__ wexp,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias,
                     const float* __restrict__ qscale,
-                    Tout* __restrict__ out, int tlen, int h, int wd, int hc,
+                    Tout* __restrict__ out, uint8_t* __restrict__ win,
+                    float* __restrict__ yw, int tlen, int h, int wd, int hc,
                     int wc, int ho, int wo, int tiles_h, int tiles_w,
                     int total_tiles) {
-  using L = Layout<KT, CIN, NG, F32IN, Tout>;
+  using L = Layout<KT, CIN, NG, F32IN, Tout, TRAIN>;
   using G = Geo<KT, CIN>;
+  using Tpark = typename L::Tpark;
   constexpr int NTH = L::NTH, CS = L::CSTRIDE;
   extern __shared__ uint4 smem_tc[];
   uint4* w_s = smem_tc;                                    // fragments
   uint8_t* region = reinterpret_cast<uint8_t*>(w_s + NG * G::WFRAG / 8);
   uint16_t* x_s = reinterpret_cast<uint16_t*>(region);     // halo planes
-  Tout* c_s = reinterpret_cast<Tout*>(region + (L::ALIAS ? 0 : L::HALO_BYTES));
-  float* sc_s = reinterpret_cast<float*>(region + L::REGION);  // scale 2^e_w
+  Tpark* c_s =
+      reinterpret_cast<Tpark*>(region + (L::ALIAS ? 0 : L::HALO_BYTES));
+  // BN scale: times 2^e_w (F32IN) for inference; TRAIN keeps it apart, in
+  // we_s, as the parked conv values carry it
+  float* sc_s = reinterpret_cast<float*>(region + L::REGION);
   float* bi_s = sc_s + NG * COUT;
   float* qs_s = bi_s + NG * COUT;                          // s, then 1 / s
   float* wmax = qs_s + 2 * NG;                             // per-warp max |x|
+  float* we_s = wmax + 16;                                 // TRAIN: 2^e_w
 
   const int tid = threadIdx.x;
   for (int i = tid; i < NG * G::WFRAG / 8; i += NTH) w_s[i] = __ldg(wf + i);
   for (int i = tid; i < NG * COUT; i += NTH) {
-    if constexpr (F32IN)
-      sc_s[i] = __ldg(scale + i) * __ldg(wexp + i);
-    else
+    float e = 1.f;
+    if constexpr (F32IN) e = __ldg(wexp + i);
+    if constexpr (TRAIN) {
       sc_s[i] = __ldg(scale + i);
+      we_s[i] = e;
+    } else {
+      sc_s[i] = __ldg(scale + i) * e;
+    }
     bi_s[i] = __ldg(bias + i);
   }
   if (L::INT8 && tid < NG) {
@@ -588,7 +630,8 @@ stem_pool_tc_kernel(const void* __restrict__ xin,
 #pragma unroll
       for (int part = 0; part < L::PARTS; ++part) {
         if (part > 0) __syncthreads();   // the previous part's pool is done
-        // 3. BN + ReLU into the shared tile, in the output's type
+        // 3. BN + ReLU into the shared tile, in the output's type; TRAIN
+        // parks the f32 conv values instead
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           if (i == 1 && !two_rows) break;
@@ -599,16 +642,23 @@ stem_pool_tc_kernel(const void* __restrict__ xin,
             if (c >= CT) continue;
             const int cc = tc.cc0 + c;
             const bool inside = cr >= 0 && cr < hc && cc >= 0 && cc < wc;
-            Tout* dst = c_s + (rows[i] * CT + c) * CS + 2 * t;
+            Tpark* dst = c_s + (rows[i] * CT + c) * CS + 2 * t;
 #pragma unroll
             for (int j = 0; j < NTP; ++j) {
               const int nt = part * NTP + j, ch = nt * 8 + 2 * t;
-              const float y0 = fmaxf(
-                  fmaf(acc[i][nt][2 * half], sc_s[ch] * fx, bi_s[ch]), 0.f);
-              const float y1 = fmaxf(fmaf(acc[i][nt][2 * half + 1],
-                                          sc_s[ch + 1] * fx, bi_s[ch + 1]),
-                                     0.f);
-              store2(dst + j * 8, inside ? y0 : 0.f, inside ? y1 : 0.f);
+              if constexpr (TRAIN) {
+                // 2^(e_x + e_w) is exact, so fmaf(y, scale, bias) below
+                // is the inference epilogue's value bit for bit
+                store2(dst + j * 8, acc[i][nt][2 * half] * (fx * we_s[ch]),
+                       acc[i][nt][2 * half + 1] * (fx * we_s[ch + 1]));
+              } else {
+                const float y0 = fmaxf(
+                    fmaf(acc[i][nt][2 * half], sc_s[ch] * fx, bi_s[ch]), 0.f);
+                const float y1 = fmaxf(fmaf(acc[i][nt][2 * half + 1],
+                                            sc_s[ch + 1] * fx, bi_s[ch + 1]),
+                                       0.f);
+                store2(dst + j * 8, inside ? y0 : 0.f, inside ? y1 : 0.f);
+              }
             }
           }
         }
@@ -622,17 +672,50 @@ stem_pool_tc_kernel(const void* __restrict__ xin,
           const int pr = pp / PT, pc = pp % PT;
           const int po = tc.po0 + pr, pcw = tc.pc0 + pc;
           if (po >= ho || pcw >= wo) continue;
-          float4 m = make_float4(0.f, 0.f, 0.f, 0.f);
+          const int64_t o = (((int64_t)tc.n * ho + po) * wo + pcw) * COUT +
+                            part * L::TILE_CH + 4 * q4;
+          if constexpr (TRAIN) {
+            // BN + ReLU of each in-image position, rounded to the
+            // output's type, compared in window order with a strict >
+            const int ch = part * L::TILE_CH + 4 * q4;
+            float best[4] = {-1.f, -1.f, -1.f, -1.f}, yb[4] = {};
+            uint32_t k[4] = {};
 #pragma unroll
-          for (int dr = 0; dr < 3; ++dr)
+            for (int dr = 0; dr < 3; ++dr)
 #pragma unroll
-            for (int dc = 0; dc < 3; ++dc) {
-              const int p = (2 * pr + dr) * CT + 2 * pc + dc;
-              m = max4(m, load4(c_s + p * CS + 4 * q4));
-            }
-          store4(out + (((int64_t)tc.n * ho + po) * wo + pcw) * COUT +
-                     part * L::TILE_CH + 4 * q4,
-                 m);
+              for (int dc = 0; dc < 3; ++dc) {
+                const int r = 2 * pr + dr, c = 2 * pc + dc;
+                const int cr = tc.cr0 + r, cc = tc.cc0 + c;
+                if (cr < 0 || cr >= hc || cc < 0 || cc >= wc) continue;
+                const float4 y4 = load4(c_s + (r * CT + c) * CS + 4 * q4);
+                const float y[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                  const float z = round_to<Tout>(
+                      fmaxf(fmaf(y[j], sc_s[ch + j], bi_s[ch + j]), 0.f));
+                  if (z > best[j]) {
+                    best[j] = z;
+                    yb[j] = y[j];
+                    k[j] = dr * 3 + dc;
+                  }
+                }
+              }
+            store4(out + o, make_float4(best[0], best[1], best[2], best[3]));
+            *reinterpret_cast<uint32_t*>(win + o) =
+                k[0] | (k[1] << 8) | (k[2] << 16) | (k[3] << 24);
+            *reinterpret_cast<float4*>(yw + o) =
+                make_float4(yb[0], yb[1], yb[2], yb[3]);
+          } else {
+            float4 m = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+            for (int dr = 0; dr < 3; ++dr)
+#pragma unroll
+              for (int dc = 0; dc < 3; ++dc) {
+                const int p = (2 * pr + dr) * CT + 2 * pc + dc;
+                m = max4(m, load4(c_s + p * CS + 4 * q4));
+              }
+            store4(out + o, m);
+          }
         }
       }
     }
@@ -643,12 +726,14 @@ stem_pool_tc_kernel(const void* __restrict__ xin,
 
 // Launches stem_pool_tc_kernel as persistent blocks over every (frame,
 // tile) item.
-template <int KT, int CIN, int NG, bool F32IN, typename Tout>
+template <int KT, int CIN, int NG, bool F32IN, typename Tout,
+          bool TRAIN = false>
 int launch(const void* x, const void* wf, const void* wexp, const void* scale,
-           const void* bias, const void* qscale, void* out, int frames,
-           int tlen, int h, int wd, cudaStream_t stream) {
-  using L = Layout<KT, CIN, NG, F32IN, Tout>;
-  auto kernel = stem_pool_tc_kernel<KT, CIN, NG, F32IN, Tout>;
+           const void* bias, const void* qscale, void* out, void* win,
+           void* yw, int frames, int tlen, int h, int wd,
+           cudaStream_t stream) {
+  using L = Layout<KT, CIN, NG, F32IN, Tout, TRAIN>;
+  auto kernel = stem_pool_tc_kernel<KT, CIN, NG, F32IN, Tout, TRAIN>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -671,28 +756,214 @@ int launch(const void* x, const void* wf, const void* wexp, const void* scale,
   kernel<<<grid, L::NTH, L::BYTES, stream>>>(
       x, static_cast<const uint4*>(wf), static_cast<const float*>(wexp),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<const float*>(qscale), static_cast<Tout*>(out), tlen, h,
-      wd, hc, wc, ho, wo, tiles_h, tiles_w, (int)total);
+      static_cast<const float*>(qscale), static_cast<Tout*>(out),
+      static_cast<uint8_t*>(win), static_cast<float*>(yw), tlen, h, wd, hc,
+      wc, ho, wo, tiles_h, tiles_w, (int)total);
   return (int)cudaGetLastError();
 }
 
+// The float stems, inference (TRAIN false) or training, by kind and dtype
+// (the C interface's codes below).
+template <bool TRAIN>
+int launch_float(const void* x, const void* wf, const void* wexp,
+                 const void* scale, const void* bias, void* out, void* win,
+                 void* yw, int kind, int dtype, int b, int tlen, int h,
+                 int wd, cudaStream_t s) {
+  if (kind == 2 && dtype == 0)
+    return launch<1, 3, 1, true, float, TRAIN>(
+        x, wf, wexp, scale, bias, nullptr, out, win, yw, b, 1, h, wd, s);
+  if (kind == 2 && dtype == 1)
+    return launch<1, 3, 1, false, __nv_bfloat16, TRAIN>(
+        x, wf, wexp, scale, bias, nullptr, out, win, yw, b, 1, h, wd, s);
+  if (kind == 3 && dtype == 0)
+    return launch<5, 1, 1, true, float, TRAIN>(
+        x, wf, wexp, scale, bias, nullptr, out, win, yw, b * tlen, tlen, h,
+        wd, s);
+  if (kind == 3 && dtype == 1)
+    return launch<5, 1, 1, false, __nv_bfloat16, TRAIN>(
+        x, wf, wexp, scale, bias, nullptr, out, win, yw, b * tlen, tlen, h,
+        wd, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // shared memory of each instance, as egot2x_stem_pool_smem_bytes reports it
-template <int KT, int CIN, int NG>
+template <int KT, int CIN, int NG, bool TRAIN = false>
 int smem_of(int dtype, bool int8) {
   if (int8)
     return dtype == 0 ? Layout<KT, CIN, NG, true, int8_t>::BYTES
                       : Layout<KT, CIN, NG, false, int8_t>::BYTES;
-  return dtype == 0 ? Layout<KT, CIN, NG, true, float>::BYTES
-                    : Layout<KT, CIN, NG, false, __nv_bfloat16>::BYTES;
+  return dtype == 0
+             ? Layout<KT, CIN, NG, true, float, TRAIN>::BYTES
+             : Layout<KT, CIN, NG, false, __nv_bfloat16, TRAIN>::BYTES;
+}
+
+// ---------------------------------------------------------------------------
+// The float stem's backward: the gradient the JAX package takes by XLA's
+// autodiff of its XLA stems (egot2x/nn/resnet2d.py _StemConv + BN + ReLU +
+// max_pool, egot2x/nn/talknet.py _Stem3DConv), from what the training
+// forward saved: the pooled output p, the winners and their conv values yw.
+// With g = dL/dp [p > 0] (ReLU's gradient is 0 where it clipped):
+//   dL/dy at a pre-pool position = scale * the sum of g over the pooled
+//     outputs whose window it won (at most 4: 2 rows x 2 columns);
+//   dL/dbias = sum of g, dL/dscale = sum of g yw, per channel.
+// dy is gathered, not scattered: a thread owns the 2x2 pre-pool positions
+// (2po + dr, 2pc + dc) of one pooled output and 4 channels, reads the
+// winners of the pooled outputs (po, pc), (po, pc + 1), (po + 1, pc),
+// (po + 1, pc + 1) (row 2po lies only in window po, at its middle row;
+// row 2po + 1 in windows po, its last row, and po + 1, its first), so dy is
+// written once, with no atomics, and is deterministic. The same thread adds
+// its own pooled output's g and g yw to its channels' sums; a block sums
+// its threads' in shared memory, and a second pass sums the blocks' in
+// order. It is bound by its bytes (dp, p, win, yw read once, dy written
+// once: dy, f32 at 4x the pooled positions, is 55% of them in f32): at 480
+// frames of 224^2 about 2.9 GB, 0.87 ms at 3.35 TB/s; it does ~2 operations
+// a byte.
+constexpr int BWD_THREADS = 256;          // 16 pooled positions x 16 quads
+constexpr int BWD_PIX = BWD_THREADS / 16;
+constexpr int BWD_BLOCKS_PER_SM = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+stem_pool_backward_kernel(const T* __restrict__ dp, const T* __restrict__ p,
+                          const uint8_t* __restrict__ win,
+                          const float* __restrict__ yw,
+                          const float* __restrict__ scale,
+                          float* __restrict__ dy,
+                          float* __restrict__ partial, long long pooled,
+                          int hc, int wc, int ho, int wo) {
+  __shared__ float red[2][BWD_PIX][COUT];
+  const int q4 = threadIdx.x % 16, slot = threadIdx.x / 16;
+  const int c0 = 4 * q4;
+  const float4 sc = *reinterpret_cast<const float4*>(scale + c0);
+  float sb[4] = {}, ss[4] = {};
+  const long long plane = (long long)ho * wo;
+  for (long long i = (long long)blockIdx.x * BWD_PIX + slot; i < pooled;
+       i += (long long)gridDim.x * BWD_PIX) {
+    const long long n = i / plane;
+    const int rem = (int)(i - n * plane);
+    const int po = rem / wo, pc = rem - po * wo;
+    float g[2][2][4];
+    uint32_t w[2][2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int qo = po + a, qc = pc + b;
+        w[a][b] = 0xffffffffu;    // matches no window position
+#pragma unroll
+        for (int j = 0; j < 4; ++j) g[a][b][j] = 0.f;
+        if (qo < ho && qc < wo) {
+          const long long off = ((n * ho + qo) * wo + qc) * COUT + c0;
+          const float4 d = load4(dp + off), v = load4(p + off);
+          g[a][b][0] = v.x > 0.f ? d.x : 0.f;
+          g[a][b][1] = v.y > 0.f ? d.y : 0.f;
+          g[a][b][2] = v.z > 0.f ? d.z : 0.f;
+          g[a][b][3] = v.w > 0.f ? d.w : 0.f;
+          w[a][b] = *reinterpret_cast<const uint32_t*>(win + off);
+        }
+      }
+    const float4 y = *reinterpret_cast<const float4*>(
+        yw + ((n * ho + po) * wo + pc) * COUT + c0);
+    const float yv[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      sb[j] += g[0][0][j];
+      ss[j] += g[0][0][j] * yv[j];
+    }
+#pragma unroll
+    for (int dr = 0; dr < 2; ++dr) {
+      const int r = 2 * po + dr;
+      if (r >= hc) break;
+#pragma unroll
+      for (int dc = 0; dc < 2; ++dc) {
+        const int c = 2 * pc + dc;
+        if (c >= wc) break;
+        float acc[4] = {};
+#pragma unroll
+        for (int a = 0; a <= dr; ++a)
+#pragma unroll
+          for (int b = 0; b <= dc; ++b) {
+            // the window row / column this position is in window (po + a)
+            const int kr = dr == 0 ? 1 : (a == 0 ? 2 : 0);
+            const int kc = dc == 0 ? 1 : (b == 0 ? 2 : 0);
+            const uint32_t k = kr * 3 + kc;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (((w[a][b] >> (8 * j)) & 0xffu) == k) acc[j] += g[a][b][j];
+          }
+        *reinterpret_cast<float4*>(dy + ((n * hc + r) * wc + c) * COUT + c0) =
+            make_float4(acc[0] * sc.x, acc[1] * sc.y, acc[2] * sc.z,
+                        acc[3] * sc.w);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    red[0][slot][c0 + j] = sb[j];
+    red[1][slot][c0 + j] = ss[j];
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * COUT) {
+    const int which = threadIdx.x / COUT, ch = threadIdx.x % COUT;
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < BWD_PIX; ++k) s += red[which][k][ch];
+    partial[((long long)blockIdx.x * 2 + which) * COUT + ch] = s;
+  }
+}
+
+// the second pass: sums (2, 64) = the blocks' partials summed in order
+__global__ void __launch_bounds__(2 * COUT)
+stem_pool_backward_sum_kernel(const float* __restrict__ partial, int blocks,
+                              float* __restrict__ sums) {
+  float s = 0.f;
+  for (int b = 0; b < blocks; ++b) s += partial[b * 2 * COUT + threadIdx.x];
+  sums[threadIdx.x] = s;
+}
+
+int backward_blocks(long long pooled, int* blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  const long long want = (pooled + BWD_PIX - 1) / BWD_PIX;
+  const long long cap = (long long)sms * BWD_BLOCKS_PER_SM;
+  *blocks = (int)(want < cap ? want : cap);
+  return 0;
+}
+
+template <typename T>
+int launch_backward(const void* dp, const void* p, const void* win,
+                    const void* yw, const void* scale, void* dy,
+                    void* partial, void* sums, int frames, int hc, int wc,
+                    cudaStream_t stream) {
+  const int ho = (hc - 1) / 2 + 1, wo = (wc - 1) / 2 + 1;
+  const long long pooled = (long long)frames * ho * wo;
+  int blocks = 0;
+  if (pooled <= 0) return (int)cudaErrorInvalidValue;
+  if (int err = backward_blocks(pooled, &blocks)) return err;
+  stem_pool_backward_kernel<T><<<blocks, BWD_THREADS, 0, stream>>>(
+      static_cast<const T*>(dp), static_cast<const T*>(p),
+      static_cast<const uint8_t*>(win), static_cast<const float*>(yw),
+      static_cast<const float*>(scale), static_cast<float*>(dy),
+      static_cast<float*>(partial), pooled, hc, wc, ho, wo);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stem_pool_backward_sum_kernel<<<1, 2 * COUT, 0, stream>>>(
+      static_cast<const float*>(partial), blocks, static_cast<float*>(sums));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// The C interface's version: 2 since the float stems take weight fragments
-// (1, implicit before, took f32 taps for the float stem and for f32 input).
-int egot2x_stem_pool_abi() { return 2; }
+// The C interface's version: 3 since the float stems have a training
+// variant and a backward (2: the float stems take weight fragments; 1,
+// implicit before, took f32 taps for the float stem and for f32 input).
+int egot2x_stem_pool_abi() { return 3; }
 
 // Float stems. kind 2: 2D, x (b, h, w, 3); kind 3: 3D, x (b, tlen, h, w).
 // dtype 0: f32 x and out, wf the fp16 fragments of the weights scaled by
@@ -703,22 +974,48 @@ int egot2x_stem_pool(const void* x, const void* wf, const void* wexp,
                      const void* scale, const void* bias, void* out, int kind,
                      int dtype, int b, int tlen, int h, int wd,
                      void* stream) {
+  return launch_float<false>(x, wf, wexp, scale, bias, out, nullptr, nullptr,
+                             kind, dtype, b, tlen, h, wd,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The float stems' training forward: the same output, and win (b*tlen,
+// ho, wo, 64) uint8, each output's winner 0-8 in its 3x3 window, and yw
+// (b*tlen, ho, wo, 64) f32, the winner's conv value.
+int egot2x_stem_pool_train(const void* x, const void* wf, const void* wexp,
+                           const void* scale, const void* bias, void* out,
+                           void* win, void* yw, int kind, int dtype, int b,
+                           int tlen, int h, int wd, void* stream) {
+  return launch_float<true>(x, wf, wexp, scale, bias, out, win, yw, kind,
+                            dtype, b, tlen, h, wd,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The float stems' backward. dp, p: (frames, ho, wo, 64) f32 (dtype 0) or
+// bf16 (dtype 1), the output's gradient and the output; win, yw as the
+// training forward wrote them; scale (64,) f32. Writes dy (frames, hc, wc,
+// 64) f32 and sums (2, 64) f32 = (dL/dbias, dL/dscale); partial holds
+// egot2x_stem_pool_backward_blocks(...) x 2 x 64 f32.
+int egot2x_stem_pool_backward(const void* dp, const void* p, const void* win,
+                              const void* yw, const void* scale, void* dy,
+                              void* partial, void* sums, int dtype,
+                              int frames, int hc, int wc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == 2 && dtype == 0)
-    return launch<1, 3, 1, true, float>(x, wf, wexp, scale, bias, nullptr,
-                                        out, b, 1, h, wd, s);
-  if (kind == 2 && dtype == 1)
-    return launch<1, 3, 1, false, __nv_bfloat16>(x, wf, wexp, scale, bias,
-                                                 nullptr, out, b, 1, h, wd,
-                                                 s);
-  if (kind == 3 && dtype == 0)
-    return launch<5, 1, 1, true, float>(x, wf, wexp, scale, bias, nullptr,
-                                        out, b * tlen, tlen, h, wd, s);
-  if (kind == 3 && dtype == 1)
-    return launch<5, 1, 1, false, __nv_bfloat16>(x, wf, wexp, scale, bias,
-                                                 nullptr, out, b * tlen, tlen,
-                                                 h, wd, s);
+  if (dtype == 0)
+    return launch_backward<float>(dp, p, win, yw, scale, dy, partial, sums,
+                                  frames, hc, wc, s);
+  if (dtype == 1)
+    return launch_backward<__nv_bfloat16>(dp, p, win, yw, scale, dy, partial,
+                                          sums, frames, hc, wc, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// blocks of the backward's first pass (its partial sums' rows), or -1
+int egot2x_stem_pool_backward_blocks(int frames, int hc, int wc) {
+  const long long ho = (hc - 1) / 2 + 1, wo = (wc - 1) / 2 + 1;
+  int blocks = 0;
+  if (backward_blocks((long long)frames * ho * wo, &blocks)) return -1;
+  return blocks;
 }
 
 // int8 stems, ng trunks stacked (kind 2: ng 1 or 2; kind 3: ng 1); wf
@@ -733,30 +1030,40 @@ int egot2x_stem_pool_q(const void* x, const void* wf, const void* wexp,
   if (dtype == 0) {
     if (kind == 2 && ng == 1)
       return launch<1, 3, 1, true, int8_t>(x, wf, wexp, scale, bias, qscale,
-                                           out, b, 1, h, wd, s);
+                                           out, nullptr, nullptr, b, 1, h, wd,
+                                           s);
     if (kind == 2 && ng == 2)
       return launch<1, 3, 2, true, int8_t>(x, wf, wexp, scale, bias, qscale,
-                                           out, b, 1, h, wd, s);
+                                           out, nullptr, nullptr, b, 1, h, wd,
+                                           s);
     if (kind == 3 && ng == 1)
       return launch<5, 1, 1, true, int8_t>(x, wf, wexp, scale, bias, qscale,
-                                           out, b * tlen, tlen, h, wd, s);
+                                           out, nullptr, nullptr, b * tlen,
+                                           tlen, h, wd, s);
   } else if (dtype == 1) {
     if (kind == 2 && ng == 1)
       return launch<1, 3, 1, false, int8_t>(x, wf, wexp, scale, bias, qscale,
-                                            out, b, 1, h, wd, s);
+                                            out, nullptr, nullptr, b, 1, h,
+                                            wd, s);
     if (kind == 2 && ng == 2)
       return launch<1, 3, 2, false, int8_t>(x, wf, wexp, scale, bias, qscale,
-                                            out, b, 1, h, wd, s);
+                                            out, nullptr, nullptr, b, 1, h,
+                                            wd, s);
     if (kind == 3 && ng == 1)
       return launch<5, 1, 1, false, int8_t>(x, wf, wexp, scale, bias, qscale,
-                                            out, b * tlen, tlen, h, wd, s);
+                                            out, nullptr, nullptr, b * tlen,
+                                            tlen, h, wd, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // dynamic shared memory of one block, bytes: kind as above, ng 0 for the
-// float stem or the int8 stem's trunks, dtype 0 (f32 input) or 1 (bf16)
+// float stem or the int8 stem's trunks, -1 for the float stem's training
+// variant; dtype 0 (f32 input) or 1 (bf16)
 int egot2x_stem_pool_smem_bytes(int kind, int ng, int dtype) {
+  if (ng < 0)
+    return kind == 3 ? smem_of<5, 1, 1, true>(dtype, false)
+                     : smem_of<1, 3, 1, true>(dtype, false);
   if (kind == 3) return smem_of<5, 1, 1>(dtype, ng != 0);
   return ng == 2 ? smem_of<1, 3, 2>(dtype, true)
                  : smem_of<1, 3, 1>(dtype, ng != 0);

@@ -11,6 +11,10 @@ Frames enter NHWC, the JAX package's layout. The stem (conv1 + bn1 + ReLU
 the NCHW tensor the stages take in ``torch.channels_last`` memory: the
 model is meant to be kept in channels_last (``build_model`` does), so no
 layout copy is made anywhere in the trunk. BatchNorm epsilon is 1e-5.
+The stem folds ``bn1``'s running statistics, so the trunk runs with its
+BNs in eval mode (a ``bn1`` in training mode raises: Stage-I training,
+with batch statistics, is not ported). With eval BNs the float path is
+differentiable, the stem through its kernel's backward (``ops/stem.py``).
 
 With ``quant=True`` (inference only, after :func:`egot2x_torch.nn.quant.
 calibrate`) the convs of the blocks are int8 ``QuantConv2d`` and int8
@@ -32,8 +36,8 @@ from egot2x_torch.data.lam import IMAGENET_MEAN, IMAGENET_STD
 from egot2x_torch.nn.layers import Conv2d, Linear
 from egot2x_torch.nn.quant import QuantConv2d, record_max
 from egot2x_torch.ops.int8 import quantize_static
-from egot2x_torch.ops.stem import (fold_bn, fold_bn_quant, stem_pool_2d,
-                                   stem_pool_q_2d)
+from egot2x_torch.ops.stem import (check_eval_bn, fold_bn, fold_bn_quant,
+                                   stem_pool_2d, stem_pool_q_2d)
 
 
 def normalize_u8_frames(x: torch.Tensor,
@@ -137,6 +141,7 @@ class ResNet2D(nn.Module):
                     y, s = block.forward_int8(y, s)
         else:
             bn = self.bn1
+            check_eval_bn(bn)
             scale, bias = fold_bn(bn.weight, bn.bias, bn.running_mean,
                                   bn.running_var, bn.eps)
             x = normalize_u8_frames(x, self.compute_dtype).contiguous()

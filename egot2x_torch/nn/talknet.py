@@ -18,6 +18,11 @@ defaults:
   * the cross-attention residual lands on ``src``;
   * audio and video are cut to the shorter of their two lengths.
 
+The 3D stem folds its BN's running statistics, so TalkNet runs with that
+BN in eval mode (in training mode it raises: Stage-I training is not
+ported); so does the translators' ``FrozenTalkNet``, whose parameters
+still take gradients when its owner trains it (``nofreeze``).
+
 With ``quant=True`` (inference only, after :func:`egot2x_torch.nn.quant.
 calibrate`) the visual ResNet runs int8 as in ``egot2x``: the 3D stem
 quantizes before its pool (``stem_pool_q_3d``) with ``stem_act_max``, the
@@ -36,8 +41,8 @@ from egot2x_torch.nn.common import MultiHeadAttention, layer_norm
 from egot2x_torch.nn.layers import Conv1d, Conv2d, Linear, PReLU
 from egot2x_torch.nn.quant import QuantConv2d, record_max
 from egot2x_torch.ops.int8 import quantize_static
-from egot2x_torch.ops.stem import (fold_bn, fold_bn_quant, stem_pool_3d,
-                                   stem_pool_q_3d)
+from egot2x_torch.ops.stem import (check_eval_bn, fold_bn, fold_bn_quant,
+                                   stem_pool_3d, stem_pool_q_3d)
 
 AVSR_BN_EPS = 1e-3
 
@@ -133,6 +138,7 @@ class VisualFrontend(nn.Module):
             for layer in self.resnet:
                 y, s = layer.forward_int8(y, s)
         else:
+            check_eval_bn(bn)
             scale, bias = fold_bn(bn.weight, bn.bias, bn.running_mean,
                                   bn.running_var, bn.eps)
             y = stem_pool_3d(x, conv.weight, scale, bias)  # (B*T, H/4, W/4, 64)
@@ -304,10 +310,12 @@ class TalkNetModel(nn.Module):
 
 
 class FrozenTalkNet(TalkNetModel):
-    """TalkNet as a Stage-II translator's frozen ``asd_model``: always in
-    eval mode (BN on running statistics, no dropout), whatever ``train()``
-    is asked, as the JAX translators run it with ``train=False`` and
-    ``deterministic=True``. Stage-I ASD trains ``TalkNetModel`` itself."""
+    """TalkNet as a Stage-II translator's ``asd_model``: always in eval
+    mode (BN on running statistics, no dropout), whatever ``train()`` is
+    asked, as the JAX translators run it with ``train=False`` and
+    ``deterministic=True``. Its parameters take gradients where the owner
+    differentiates it (``nofreeze``). Stage-I ASD trains ``TalkNetModel``
+    itself."""
 
     def train(self, mode: bool = True):
         return super().train(False)

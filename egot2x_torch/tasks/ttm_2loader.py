@@ -3,14 +3,18 @@
 Counterpart of ``egot2x/tasks/ttm_2loader.py``: the TTM task's weighted
 CE and per-segment mAP, with a batch of ``frames`` (B, T, H, W, 3),
 ``video_asd`` (B, T, 112, 112), ``audio`` (B, S), ``audio_asd``
-(B, 4T, 13) and ``label`` (B,), and a Stage-II translator whose LAM, TTM
-and TalkNet backbones are frozen (``FROZEN_KEYS``): ``build_state``
-grafts the Stage-I checkpoints named by ``lam_checkpoint``,
-``ttm_checkpoint`` and ``asd_checkpoint`` and hands the optimizer the
-translator's own parameters only. ``quant_trunks`` runs the frozen trunks
-int8 (static PTQ, calibrated by the Trainer on the first batch); they take
-no gradient, so the int8 path, accuracy-gated for inference, serves
-training too. The model runs on the card unless ``device`` says otherwise.
+(B, 4T, 13) and ``label`` (B,), and a Stage-II translator over the LAM,
+TTM and TalkNet backbones (``FROZEN_KEYS``): ``build_state`` grafts the
+Stage-I checkpoints named by ``lam_checkpoint``, ``ttm_checkpoint`` and
+``asd_checkpoint`` and hands the optimizer the translator's own
+parameters only, or, with ``nofreeze``, every parameter, the backbones'
+too (which still run in eval mode, so their BN statistics do not move);
+``remat`` recomputes the backbones' activations in the backward under
+``nofreeze``. ``quant_trunks`` runs the frozen trunks int8 (static PTQ,
+calibrated by the Trainer on the first batch); they take no gradient, so
+the int8 path, accuracy-gated for inference, serves training too, and
+``quant_trunks`` with ``nofreeze`` is refused. The model runs on the card
+unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from egot2x_torch.core import bridge
-from egot2x_torch.core.checkpoint import graft_backbone
+from egot2x_torch.core.checkpoint import graft_stage1
 from egot2x_torch.core.registry import build_model
 from egot2x_torch.nn.common import set_dropout_generator
 from egot2x_torch.tasks.base import resolve_dtype
@@ -28,12 +32,6 @@ from egot2x_torch.train.optim import construct_optimizer
 from egot2x_torch.train.state import TrainState, split_params
 from egot2x_torch.translate.egot2s_hhi import FROZEN_KEYS
 
-# (backbone, config key of its Stage-I checkpoint, the backbone's
-# submodule in the Stage-I model: TalkNetWithHeads holds TalkNet as
-# ``model``; a LAM or TTM model's trunk names sit at its top)
-GRAFTS = (("lam_model", "lam_checkpoint", None),
-          ("ttm_model", "ttm_checkpoint", None),
-          ("asd_model", "asd_checkpoint", "model"))
 
 
 class TalkingToMe2Loader(TalkingToMe):
@@ -60,14 +58,13 @@ class TalkingToMe2Loader(TalkingToMe):
     def build_state(self, seed: int = 0) -> TrainState:
         """Weights drawn from ``seed`` (the weight bridge's seeded tree),
         the configured Stage-I backbones grafted over them, the backbones
-        frozen, and Adam over the rest."""
+        frozen unless ``nofreeze``, and Adam over the rest."""
         c, model = self.cfg, self.model
         bridge.load_jax_variables(model,
                                   bridge.random_jax_variables(model, seed))
-        for key, flag, src in GRAFTS:
-            if c.get(flag) and hasattr(model, key):
-                graft_backbone(model, key, c.get(flag), params_src=src)
-        trainable, _ = split_params(model, lambda k: k in FROZEN_KEYS)
+        graft_stage1(model, c)
+        frozen_keys = () if c.get("nofreeze") else FROZEN_KEYS
+        trainable, _ = split_params(model, lambda k: k in frozen_keys)
         optimizer = construct_optimizer(trainable, "adam", lr=c.lr,
                                         weight_decay=c.get("wd", 0.0))
         return TrainState(model, optimizer)

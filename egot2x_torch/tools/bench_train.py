@@ -7,14 +7,20 @@ backward and its Adam update), batch 64 clips of T = 30 frames at 224^2,
 bf16 compute, hidden 128, 1 layer, 4 heads, dropout 0.5; ``QUANT=1`` runs
 the frozen trunks int8 (static PTQ, calibrated on the feed batch). The
 feed is drawn on the device from a seed: normalized f32 frames, grey
-faces, raw audio, MFCC. One warm-up step, then ``N_ITER`` steps timed with
-the host clock between two ``torch.cuda.synchronize()``, then a profiled
-window of 3 steps for the device's busy share.
+faces, raw audio, MFCC. ``NOFREEZE=1`` trains the three backbones too
+(still in eval mode; their stems through the stem kernel's backward) and
+``REMAT=1`` recomputes their activations in the backward, as
+``tools/bench_train.py``'s knobs of the same names. One warm-up step, then
+``N_ITER`` steps timed with the host clock between two
+``torch.cuda.synchronize()``, then a profiled window of 3 steps for the
+device's busy share and device time by kernel class.
 
-    python -m egot2x_torch.tools.bench_train        # BATCH, T, N_ITER, QUANT
+    python -m egot2x_torch.tools.bench_train   # BATCH, T, N_ITER, QUANT,
+                                               # NOFREEZE, REMAT
 
 Prints one JSON line: train clips/s and steps/s on the named device, peak
-device memory, the device busy share. It compares with no TPU number.
+device memory over the timed steps, the device busy share. It compares
+with no TPU number.
 """
 
 from __future__ import annotations
@@ -42,13 +48,15 @@ def _feed(batch, t, img, device, seed=0):
                                    device=device)}
 
 
-def run(batch=64, t=30, n_iter=10, quant=False, img=224, device=None):
+def run(batch=64, t=30, n_iter=10, quant=False, img=224, device=None,
+        nofreeze=False, remat=False):
     """The bench's numbers as a dict; ``device="cpu"`` runs the plain
     versions (a smoke, no device metrics)."""
     cfg = Config(
         model="TaskFusionMFTransformer3Task", weights=[0.266, 0.734],
         lr=1e-4, wd=1e-4, seed=0, hidden_dim=128, num_layers=1,
-        num_heads=4, dropout=0.5, quant_trunks=quant, compute_dtype="bf16")
+        num_heads=4, dropout=0.5, quant_trunks=quant, compute_dtype="bf16",
+        nofreeze=nofreeze, remat=remat)
     task = TalkingToMe2Loader(cfg, device=device)
     state = task.build_state(cfg.seed)
     dev = next(state.model.parameters()).device
@@ -75,9 +83,12 @@ def run(batch=64, t=30, n_iter=10, quant=False, img=224, device=None):
         "first_loss": first_loss, "last_loss": float(metrics["loss"]),
         "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
                          if on_card else None),
-        "device_busy_share": None,
+        "device_busy_share": None, "nofreeze": nofreeze, "remat": remat,
         "config": (f"bf16 train step, "
-                   + ("int8 frozen trunks" if quant else "frozen backbones")
+                   + ("int8 frozen trunks" if quant else
+                      "nofreeze: trainable backbones" if nofreeze else
+                      "frozen backbones")
+                   + (", remat" if remat else "")
                    + f", Adam, dropout 0.5, batch {batch}, T={t}, {img}^2")}
     if on_card:
         from torch.profiler import ProfilerActivity, profile
@@ -104,7 +115,9 @@ def main():
     print(json.dumps(run(batch=int(os.environ.get("BATCH", "64")),
                          t=int(os.environ.get("T", "30")),
                          n_iter=int(os.environ.get("N_ITER", "10")),
-                         quant=bool(int(os.environ.get("QUANT", "0"))))))
+                         quant=bool(int(os.environ.get("QUANT", "0"))),
+                         nofreeze=bool(int(os.environ.get("NOFREEZE", "0"))),
+                         remat=bool(int(os.environ.get("REMAT", "0"))))))
 
 
 if __name__ == "__main__":

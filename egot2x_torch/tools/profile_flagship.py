@@ -52,9 +52,18 @@ def _category(name: str) -> str:
     n = name.lower()
     if "flash_attention_kernel" in n:
         return "flash attention kernel (ours)"
-    if "stem_pool_tc_kernel" in n:   # <KT, CIN, NG, F32IN, Tout>
-        return ("int8 stem kernel (ours)" if "signed char" in n
+    if "stem_pool_tc_kernel" in n:   # <KT, CIN, NG, F32IN, Tout, TRAIN>
+        # Tout int8_t is "signed char"; every instance takes the winners as
+        # "unsigned char*"
+        return ("int8 stem kernel (ours)"
+                if "signed char" in n.replace("unsigned char", "")
                 else "stem kernel (ours)")
+    if "stem_pool_backward" in n:
+        return "stem backward kernel (ours)"
+    if "convolution_backward" in n or "wgrad" in n or "dgrad" in n:
+        return "cuDNN convolution backward"
+    if "maxpool" in n or "max_pool" in n:
+        return "max-pool"
     if (("gemm" in n or "xmma" in n or "cutlass" in n)
             and ("s8" in n or "i8" in n or "int8" in n or "imma" in n)):
         return "int8 matmul (torch._int_mm)"

@@ -38,7 +38,8 @@ def split_params(model: nn.Module, is_frozen: Callable[[str], bool]
                  ) -> Tuple[Dict[str, nn.Parameter], Dict[str, nn.Parameter]]:
     """(trainable, frozen) parameters of ``model`` by the predicate on
     their top-level module name; the frozen ones get
-    ``requires_grad=False``."""
+    ``requires_grad=False`` (a predicate that freezes nothing, as
+    ``nofreeze`` gives, leaves every parameter trainable)."""
     trainable, frozen = {}, {}
     for name, p in model.named_parameters():
         if is_frozen(name.split(".", 1)[0]):

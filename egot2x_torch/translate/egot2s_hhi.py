@@ -31,20 +31,28 @@ int8 static-PTQ trunks (``nn.quant``; calibrate first) and, with it,
 not while calibrating or training; parameters keep the two-trunk layout
 either way.
 
-Training (Stage II) freezes the backbones, the keys ``FROZEN_KEYS``: they
-run in eval mode whatever ``train()`` says, and under ``torch.no_grad``,
-the counterpart of the JAX package's ``stop_gradient``; only the fusion
-core learns. ``dropout`` is the encoder's rate; the PE's is 0.1 whatever
-it is, as in the JAX package. ``nofreeze`` (train the trunks too) and
-``remat`` (recompute their activations in the backward) need backward
-passes through the stem kernels and raise until those are ported
-(ROADMAP.md §1 item 2).
+Training (Stage II). The backbones, the keys ``FROZEN_KEYS``, run in
+eval mode whatever ``train()`` says (BN on running statistics), as the
+JAX package runs them with ``train=False``. By default they are frozen:
+they run under ``torch.no_grad``, the counterpart of the JAX package's
+``stop_gradient``, and only the fusion core learns. ``nofreeze=True``
+differentiates them too, as the JAX package drops the ``stop_gradient``
+(its ``_maybe_freeze``): their stems go through the stem kernel's
+backward (``ops/stem.py``). ``remat=True`` recomputes each trunk's
+activations in the backward (``torch.utils.checkpoint``, non-reentrant)
+under ``nofreeze`` only, as the JAX package's ``nn.remat`` does; without
+``nofreeze`` it changes nothing. ``dropout`` is the encoder's rate; the
+PE's is 0.1 whatever it is, as in the JAX package. The ASD baselines
+(``FinetuneASD``, ``LAM2ASD``, ``TTM2ASD``) take these arguments and keep
+their backbones under ``no_grad`` whatever they say, as the JAX package
+``stop_gradient``s them.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from egot2x_torch.core.registry import MODEL_REGISTRY
 from egot2x_torch.models.lam import LAMBackbone
@@ -62,14 +70,6 @@ TASK_IDS = {"ttm": 0, "lam": 1, "asd": 2}
 FROZEN_KEYS = ("lam_model", "ttm_model", "asd_model")
 
 
-def _frozen_trunks_only(nofreeze: bool, remat: bool) -> None:
-    if nofreeze or remat:
-        raise NotImplementedError(
-            "nofreeze and remat differentiate the trunks, which needs "
-            "backward passes through the stem kernels: not ported yet "
-            "(ROADMAP.md §1 item 2)")
-
-
 def _encode_prepare(x, ln, task_embed, task_id, pos_embed):
     """LN + task embedding + per-stream PE (reference encode_prepare)."""
     return pos_embed(ln(x) + task_embed[:, task_id, :].to(x.dtype))
@@ -81,10 +81,12 @@ class _MFTransformerCore(nn.Module):
 
     def __init__(self, streams, hidden_dim: int, num_heads: int,
                  num_layers: int, dtype=torch.float32, head: bool = True,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, nofreeze: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.streams = tuple(streams)
         self.compute_dtype = dtype
+        self.nofreeze, self.remat = nofreeze, remat
         for s in self.streams:
             setattr(self, f"proj_{s}", Linear(256, hidden_dim))
         self.task_embed = nn.Parameter(
@@ -113,6 +115,17 @@ class _MFTransformerCore(nn.Module):
         compute dtype."""
         return self.linear_head(self.encode(tokens).mean(dim=1))
 
+    def _trunk(self, module, *args):
+        """A backbone's forward: under ``no_grad`` when frozen; with
+        gradients under ``nofreeze``, recomputed in the backward under
+        ``remat``."""
+        if not self.nofreeze:
+            with torch.no_grad():
+                return module(*args)
+        if self.remat:
+            return checkpoint(module, *args, use_reentrant=False)
+        return module(*args)
+
 
 @MODEL_REGISTRY.register(name="TaskFusionMFTransformer2Task")
 class TaskFusionMFTransformer2Task(_MFTransformerCore):
@@ -122,18 +135,17 @@ class TaskFusionMFTransformer2Task(_MFTransformerCore):
                  num_layers: int = 3, dtype=torch.float32,
                  dropout: float = 0.1, nofreeze: bool = False,
                  remat: bool = False):
-        _frozen_trunks_only(nofreeze, remat)
         super().__init__(("ttm", "lam"), hidden_dim, num_heads, num_layers,
-                         dtype, dropout=dropout)
+                         dtype, dropout=dropout, nofreeze=nofreeze,
+                         remat=remat)
         self.lam_model = LAMBackbone(dtype=dtype)
         self.ttm_model = TTMBackbone(dtype=dtype)
 
     def forward(self, video, audio=None):
         """video (B, T, H, W, 3), f32 normalized or uint8."""
-        with torch.no_grad():   # the frozen trunks
-            video = normalize_u8_frames(video, self.compute_dtype)  # once
-            tokens = {"ttm": self.ttm_model(video, audio),
-                      "lam": self.lam_model(video)}
+        video = normalize_u8_frames(video, self.compute_dtype)  # once
+        tokens = {"ttm": self._trunk(self.ttm_model, video, audio),
+                  "lam": self._trunk(self.lam_model, video)}
         return self.fuse(tokens)
 
 
@@ -146,9 +158,9 @@ class TaskFusionMFTransformer3Task(_MFTransformerCore):
                  fuse_stems: bool = False, dtype=torch.float32,
                  dropout: float = 0.1, nofreeze: bool = False,
                  remat: bool = False):
-        _frozen_trunks_only(nofreeze, remat)
         super().__init__(("ttm", "lam", "asd"), hidden_dim, num_heads,
-                         num_layers, dtype, dropout=dropout)
+                         num_layers, dtype, dropout=dropout,
+                         nofreeze=nofreeze, remat=remat)
         self.lam_model = LAMBackbone(quant=quant, dtype=dtype)
         self.ttm_model = TTMBackbone(quant=quant, dtype=dtype)
         self.asd_model = FrozenTalkNet(quant, dtype)
@@ -163,17 +175,18 @@ class TaskFusionMFTransformer3Task(_MFTransformerCore):
         int8 = self.quant and not self.calibrating
         if int8:
             self._assert_calibrated()
-        with torch.no_grad():   # the frozen trunks
-            video = normalize_u8_frames(video, self.compute_dtype)  # once
-            asd, _, _ = self.asd_model(audio_asd, video_asd)
-            stem_lam = stem_ttm = None
-            if int8 and self.fuse_stems and not self.training:
-                n, t = video.shape[:2]
+        video = normalize_u8_frames(video, self.compute_dtype)  # once
+        asd = self._trunk(self.asd_model, audio_asd, video_asd)[0]
+        stem_lam = stem_ttm = None
+        if int8 and self.fuse_stems and not self.training:
+            n, t = video.shape[:2]
+            with torch.no_grad():   # int8 inference only
                 stem_lam, stem_ttm = fused_rgb_stem(
                     video.reshape(n * t, *video.shape[2:]),
                     [self.lam_model.base_model, self.ttm_model.video_encoder])
-            tokens = {"ttm": self.ttm_model(video, audio, stem_ttm),
-                      "lam": self.lam_model(video, stem_lam), "asd": asd}
+        tokens = {"ttm": self._trunk(self.ttm_model, video, audio, stem_ttm),
+                  "lam": self._trunk(self.lam_model, video, stem_lam),
+                  "asd": asd}
         return self.fuse(tokens)
 
     def _assert_calibrated(self):
@@ -195,9 +208,12 @@ class TaskFusionMFTransformer3TaskASD(_MFTransformerCore):
     path and not built (load its checkpoints with ``strict=False``)."""
 
     def __init__(self, hidden_dim: int = 256, num_heads: int = 4,
-                 num_layers: int = 3, dtype=torch.float32):
+                 num_layers: int = 3, dtype=torch.float32,
+                 dropout: float = 0.1, nofreeze: bool = False,
+                 remat: bool = False):
         super().__init__(("asd", "ttm", "lam"), hidden_dim, num_heads,
-                         num_layers, dtype, head=False)
+                         num_layers, dtype, head=False, dropout=dropout,
+                         nofreeze=nofreeze, remat=remat)
         self.lam_model = LAMBackbone(dtype=dtype)
         self.ttm_model = TTMBackbone(dtype=dtype)
         self.asd_model = FrozenTalkNet(dtype=dtype)
@@ -205,11 +221,10 @@ class TaskFusionMFTransformer3TaskASD(_MFTransformerCore):
 
     def forward(self, video, video_asd, audio, audio_asd):
         """Inputs as the 3-task translator's."""
-        with torch.no_grad():   # the frozen trunks
-            video = normalize_u8_frames(video, self.compute_dtype)  # once
-            asd, _, _ = self.asd_model(audio_asd, video_asd)
-            tokens = {"asd": asd, "ttm": self.ttm_model(video, audio),
-                      "lam": self.lam_model(video)}
+        video = normalize_u8_frames(video, self.compute_dtype)  # once
+        asd = self._trunk(self.asd_model, audio_asd, video_asd)[0]
+        tokens = {"asd": asd, "ttm": self._trunk(self.ttm_model, video, audio),
+                  "lam": self._trunk(self.lam_model, video)}
         out = self.encode(tokens)
         n, t = asd.shape[:2]
         return out[:, :t].reshape(n * t, self.output_dim)
@@ -217,12 +232,15 @@ class TaskFusionMFTransformer3TaskASD(_MFTransformerCore):
 
 class _FrameBaseline(nn.Module):
     """One frozen backbone's per-frame features -> ``fc1`` 256 -> D, ReLU
-    -> (B*T, D). The fusion widths (``num_heads``, ``num_layers``) are
-    taken and unused, as in the JAX package, so any ASD translator builds
-    from one set of arguments."""
+    -> (B*T, D). The fusion widths (``num_heads``, ``num_layers``) and the
+    training options (``dropout``, ``nofreeze``, ``remat``) are taken and
+    unused, as in the JAX package, so any ASD translator builds from one
+    set of arguments: the backbone stays frozen."""
 
     def __init__(self, hidden_dim: int = 256, num_heads: int = 4,
-                 num_layers: int = 3, dtype=torch.float32):
+                 num_layers: int = 3, dtype=torch.float32,
+                 dropout: float = 0.1, nofreeze: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.compute_dtype = dtype
         self.output_dim = hidden_dim

@@ -109,13 +109,16 @@ def test_frame_weighted_ce_matches_jax():
     assert asd.ASD_BUCKETS == (15, 30, 60, 90, 120, 150)
 
 
-def _check_eval(port_task, jax_cls, jax_state, batch):
+def _check_eval(port_task, jax_cls, jax_state, batch, port_state=None):
     """The port task's eval outputs and val_acc against the JAX task's
     (made without its constructor, which loads data; its eval methods read
-    only the state and the batch)."""
+    only the state and the batch). ``port_state``: the state a port Task's
+    ``eval_step`` takes, None for the Stage-I task, which holds its
+    model."""
     jax_task = object.__new__(jax_cls)
     want = jax_task.eval_step(jax_state, _jax_batch(batch))
-    got = port_task.eval_step(_torch_batch(batch))
+    got = (port_task.eval_step(_torch_batch(batch)) if port_state is None
+           else port_task.eval_step(port_state, _torch_batch(batch)))
     for key in ("correct", "total"):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
     np.testing.assert_allclose(got["scores"].numpy(),
@@ -166,8 +169,9 @@ def test_asd_translator_matches_jax(stage2):
     state = SimpleNamespace(apply_fn=apply, frozen={},
                             params=variables["params"],
                             batch_stats=variables["batch_stats"])
-    _check_eval(asd_2loader.ActiveSpeakerDetection2Loader(port), JaxASD2,
-                state, x)
+    # the port task likewise without its constructor, which builds a model
+    task = object.__new__(asd_2loader.ActiveSpeakerDetection2Loader)
+    _check_eval(task, JaxASD2, state, x, SimpleNamespace(model=port))
 
 
 def _assert_round_trip(port, variables, jax_model, *args):

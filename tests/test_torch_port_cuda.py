@@ -5,7 +5,10 @@ head dim launches the kernel, attention that needs grad raises), small
 flagships
 (float and int8) on the card against the CPU, and a frozen Stage-II train
 step on the card against the CPU (loss 1e-4 relative, gradient cosines
->= 0.99999).
+>= 0.99999). The float stem's training variant and backward kernel
+against their plain versions, the differentiable stem against autograd
+of the plain version, the int8 stems' refusal of inputs that need grad,
+and ``nofreeze`` / ``remat`` train steps on the card against the CPU.
 
 Marked ``cuda``; each test skips when the process sees no CUDA card. This
 file imports neither JAX nor the JAX package, so on a machine without JAX
@@ -556,4 +559,270 @@ def test_train_step_on_card_matches_cpu(cuda):
         assert cos >= 0.99999, name
     after = states[0].model.state_dict()
     for k, v in frozen.items():
+        assert torch.equal(after[k], v), k
+
+
+# -- the float stem's training forward and backward ---------------------------
+
+def _train_case(kind, shape, dtype, cuda, seed=21):
+    """(x on the card in ``dtype``, weight, scale, bias) of a training
+    stem, weights N(0, 1 / fan-in)."""
+    rng = np.random.default_rng(seed)
+    if kind == "2d":
+        x = rng.standard_normal(shape + (3,)).astype(np.float32)
+    else:
+        x = rng.uniform(-2.5, 3.5, shape).astype(np.float32)
+    _, _, x, weight, scale, bias = _stem_inputs(kind, x, cuda, seed + 1)
+    return x.to(dtype), weight, scale, bias
+
+
+def _conv_hw(kind, x):
+    h, w = x.shape[1:3] if kind == "2d" else x.shape[2:4]
+    return stem.conv_size(h), stem.conv_size(w)
+
+
+def _train_forward(kind, x, weight, scale, bias):
+    """The kernel's training forward, through ``_launch``, and its count."""
+    w_taps, b, t, h, w = stem._float_geometry(2 if kind == "2d" else 3, x,
+                                              weight)
+    return stem._launch(2 if kind == "2d" else 3, x, w_taps, scale, bias, b,
+                        t, h, w, train=True)
+
+
+TRAIN_SHAPES = [("2d", (2, 224, 224)), ("2d", (3, 112, 112)),
+                ("2d", (2, 200, 168)), ("2d", (2, 97, 131)),
+                ("3d", (1, 7, 112, 112)), ("3d", (5, 7, 112, 112))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind, shape", TRAIN_SHAPES)
+def test_stem_training_forward_matches_plain(cuda, kind, shape, dtype):
+    """The training variant: its output is the inference kernel's bit for
+    bit; its winners are ``F.max_pool2d``'s on the plain map in the
+    output's type (bf16: rounded, where the kernel ties) in at least 99.9%
+    of the windows, and every other one is a near-tie (the plain value
+    at the kernel's winner within the output's tolerance of the window's
+    max; ties are decided alike, first in row-major order); its saved
+    conv values are the winners' (f32 rtol = atol = 1e-4; bf16: f32
+    products of the bf16 frames and the weights as bf16 hi + lo, 1e-3)."""
+    x, weight, scale, bias = _train_case(kind, shape, dtype, cuda)
+    out, win, yw = _train_forward(kind, x, weight, scale, bias)
+    infer = (stem.stem_pool_2d if kind == "2d" else stem.stem_pool_3d)(
+        x, weight, scale, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(out, infer)
+    if kind == "2d":
+        y = torch.nn.functional.conv2d(x.float().permute(0, 3, 1, 2), weight,
+                                       stride=2, padding=3)
+    else:
+        y = stem._conv3d_frames(x.float(), weight)
+    z = stem._affine_relu(y, scale, bias).to(dtype).float()
+    ref, idx = torch.nn.functional.max_pool2d(z, 3, 2, 1, return_indices=True)
+    torch.testing.assert_close(out.float(), ref.permute(0, 2, 3, 1),
+                               **TOL[dtype])
+    ho, wo = ref.shape[-2:]
+    k = win.permute(0, 3, 1, 2).long()
+    kernel_idx = ((2 * torch.arange(ho, device=cuda).view(ho, 1) - 1 + k // 3)
+                  * y.shape[-1] + 2 * torch.arange(wo, device=cuda) - 1
+                  + k % 3)
+    same = kernel_idx == idx
+    assert float(same.double().mean()) >= 0.999
+    at_kernel = z.flatten(2).gather(2, kernel_idx.flatten(2)).view(ref.shape)
+    tol = TOL[dtype]["rtol"]
+    assert bool(((at_kernel - ref).abs() <= tol * (1 + ref.abs())).all())
+    ref_yw = y.flatten(2).gather(2, idx.flatten(2)).view(ref.shape)
+    same = same.permute(0, 2, 3, 1)
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(yw[same], ref_yw.permute(0, 2, 3, 1)[same],
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kind", ["2d", "3d"])
+def test_stem_training_winners_break_ties_first(cuda, kind):
+    """A constant frame (clip) ties every interior window exactly: the
+    kernel's winner there is the window's first position, as
+    ``F.max_pool2d``'s is."""
+    shape = (2, 64, 64) if kind == "2d" else (2, 3, 64, 64)
+    x, weight, scale, bias = _train_case(kind, shape, torch.float32, cuda)
+    x[0] = 0.5
+    _, win, _ = _train_forward(kind, x, weight, scale, bias)
+    assert bool((win[0, 2:-2, 2:-2] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind, shape", TRAIN_SHAPES)
+def test_stem_backward_kernel_matches_plain(cuda, kind, shape, dtype):
+    """The backward kernel against its plain version on the same saved
+    tensors (the training forward's): dy to 1e-5 relative (at most 4
+    terms a position, summed in another order); dscale and dbias to 1e-5
+    of the sum of their terms' magnitudes (the blocks' partial sums in
+    another order than the plain version's); one launch."""
+    x, weight, scale, bias = _train_case(kind, shape, dtype, cuda)
+    out, win, yw = _train_forward(kind, x, weight, scale, bias)
+    rng = np.random.default_rng(23)
+    dp = torch.from_numpy(rng.standard_normal(tuple(out.shape))
+                          .astype(np.float32)).to(cuda).to(dtype)
+    hw = _conv_hw(kind, x)
+    before = stem.stem_pool_backward.launches
+    dy, dscale, dbias = stem.stem_pool_backward(dp, out, win, yw, scale, hw)
+    torch.cuda.synchronize()
+    assert stem.stem_pool_backward.launches == before + 1
+    want = stem.stem_pool_backward_plain(dp, out, win, yw, scale, hw)
+    assert dy.shape == want[0].shape and dy.dtype == torch.float32
+    torch.testing.assert_close(dy, want[0], rtol=1e-5,
+                               atol=1e-6 * float(want[0].abs().max()))
+    g = torch.where(out > 0, dp.float(), 0.0)
+    for got, ref, terms in ((dscale, want[1], (g * yw).abs()),
+                            (dbias, want[2], g.abs())):
+        bound = 1e-5 * terms.sum((0, 1, 2)) + 1e-30
+        assert bool(((got - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["2d", "3d"])
+def test_stem_function_gradients_match_plain(cuda, kind, dtype):
+    """The differentiable stem on the card (training kernel, backward
+    kernel, the library's conv gradients; one launch of each kernel):
+    dscale and dbias against autograd of the plain version (cuDNN, TF32
+    off; bf16: in f32 on the bf16 frames), per channel to 1e-5 (bf16:
+    1e-3) of the sum of their terms' magnitudes (random dp cancels in the
+    sums; a winner that flips at a near-tie moves its term to a near-equal
+    value, a ReLU input at the kink one term in or out); dW and dx, which
+    such a flip moves to another input patch, against the library's conv
+    gradients of the plain backward routed by the same winners, 1e-5 (bf16:
+    1e-3, as dx is rounded to bf16)."""
+    shape = (4, 96, 80) if kind == "2d" else (2, 5, 64, 48)
+    x, weight, scale, bias = _train_case(kind, shape, dtype, cuda)
+    fn, plain = ((stem.stem_pool_2d, stem.stem_pool_2d_plain) if kind == "2d"
+                 else (stem.stem_pool_3d, stem.stem_pool_3d_plain))
+    ours = [v.clone().requires_grad_() for v in (x, weight, scale, bias)]
+    counts = (stem.stem_pool_2d.launches + stem.stem_pool_3d.launches,
+              stem.stem_pool_backward.launches)
+    out = fn(*ours)
+    rng = np.random.default_rng(24)
+    dp = torch.from_numpy(rng.standard_normal(tuple(out.shape))
+                          .astype(np.float32)).to(cuda).to(dtype)
+    got = torch.autograd.grad(out, ours, dp)
+    torch.cuda.synchronize()
+    assert (stem.stem_pool_2d.launches + stem.stem_pool_3d.launches,
+            stem.stem_pool_backward.launches) == (counts[0] + 1,
+                                                  counts[1] + 1)
+    for name, g in zip(("x", "weight", "scale", "bias"), got):
+        assert g.dtype == (dtype if name == "x" else torch.float32), name
+    ref_in = [v.float().clone().requires_grad_()
+              for v in (x, weight, scale, bias)]
+    want = torch.autograd.grad(plain(*ref_in), ref_in, dp.float())
+    code = 2 if kind == "2d" else 3
+    saved = _train_forward(kind, x, weight, scale, bias)
+    g = torch.where(saved[0] > 0, dp.float(), 0.0)
+    bar = 1e-5 if dtype == torch.float32 else 1e-3
+    for ours, ref, terms in ((got[2], want[2], g * saved[2]),
+                             (got[3], want[3], g)):
+        bound = bar * terms.abs().sum((0, 1, 2))
+        assert bool(((ours - ref).abs() <= bound).all())
+    dy = stem.stem_pool_backward_plain(dp, *saved, scale,
+                                       _conv_hw(kind, x))[0]
+    dx, dw = stem._conv_grads(code, x, weight, dy, True, True)
+    for g, w in ((got[0], dx), (got[1], dw)):
+        assert float((g.float() - w.float()).norm() / w.float().norm()) <= (
+            1e-5 if dtype == torch.float32 else 1e-3)
+
+
+def test_int8_stems_refuse_inputs_that_need_grad(cuda):
+    """The int8 stems have no backward: inputs that need grad raise before
+    any launch; under no_grad they launch."""
+    rng = np.random.default_rng(25)
+    weight, scale, bias = _params(rng, (64, 3, 7, 7), cuda)
+    x = torch.zeros(1, 32, 32, 3, device=cuda)
+    steps = torch.tensor([0.02], device=cuda)
+    w = weight.clone().requires_grad_()
+    before = stem.stem_pool_q_2d.launches
+    with pytest.raises(ValueError, match="no backward"):
+        stem.stem_pool_q_2d(x, w, scale, bias, steps)
+    w3 = torch.zeros(64, 1, 5, 7, 7, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        stem.stem_pool_q_3d(torch.zeros(1, 5, 32, 32, device=cuda), w3,
+                            scale, bias, steps)
+    assert stem.stem_pool_q_2d.launches == before
+    with torch.no_grad():
+        stem.stem_pool_q_2d(x, w, scale, bias, steps)
+    assert stem.stem_pool_q_2d.launches == before + 1
+
+
+def _leaf_gaps(card, cpu):
+    """(largest relative norm gap, least cosine) over the gradient
+    leaves; leaves whose CPU norm is below 1e-6 per element's root (the
+    attention key biases, whose gradient is 0 in exact arithmetic) count
+    by absolute gap only."""
+    worst_rel, worst_cos = 0.0, 1.0
+    for name, g in cpu.items():
+        c = card[name]
+        floor = 1e-6 * np.sqrt(g.numel())
+        gap = float((c - g).norm())
+        if float(g.norm()) <= floor:
+            assert gap <= floor, name
+            continue
+        worst_rel = max(worst_rel, gap / float(g.norm()))
+        worst_cos = min(worst_cos, float(c.flatten() @ g.flatten()
+                                         / (c.norm() * g.norm())))
+    return worst_rel, worst_cos
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["nofreeze", "remat"])
+def test_trainable_trunk_step_on_card_matches_cpu(cuda, remat):
+    """One ``nofreeze`` Stage-II train step of a small flagship (D=64, 1
+    layer) with dropout off, with and without ``remat``, on the card and
+    on the CPU from the same weights: per step 2 + 1 stem launches
+    forward (twice that under remat) and 3 backward launches; the loss
+    agrees to 1e-4 relative; every gradient leaf, the trunks' included,
+    within 5e-2 of its norm and at cosine >= 0.999 (the kernel and cuDNN
+    round the stem's conv apart, so a few pool windows whose two largest
+    values nearly tie pick another winner on each device, and a ReLU
+    input within f32 rounding of 0 may land on the other side of the
+    kink: each moves one term of a leaf's sum; a gradient routed wrong
+    is off by O(1)); the trunks' BN statistics stay bit for bit."""
+    from egot2x_torch.core.config import Config
+    from egot2x_torch.nn.common import Dropout
+    from egot2x_torch.tasks.ttm_2loader import TalkingToMe2Loader
+
+    cfg = Config(model="TaskFusionMFTransformer3Task", weights=[0.266, 0.734],
+                 lr=1e-3, wd=1e-2, hidden_dim=64, num_heads=4, num_layers=1,
+                 dropout=0.0, nofreeze=True, remat=remat)
+    tasks = [TalkingToMe2Loader(cfg, device=d) for d in (cuda, "cpu")]
+    states = [t.build_state(0) for t in tasks]
+    rng = np.random.default_rng(26)
+    batch = dict(
+        frames=rng.standard_normal((2, 4, 64, 64, 3)).astype(np.float32),
+        video_asd=rng.uniform(0, 255, (2, 4, 112, 112)).astype(np.float32),
+        audio=np.zeros((2, 4 * 16000 // 30), np.float32),
+        audio_asd=rng.standard_normal((2, 16, 13)).astype(np.float32),
+        label=np.array([0, 1]))
+    stats = {k: v.clone() for k, v in states[0].model.named_buffers()
+             if k.split(".", 1)[0] in ("lam_model", "ttm_model", "asd_model")}
+    counters = (stem.stem_pool_2d, stem.stem_pool_3d, stem.stem_pool_backward)
+    before = [c.launches for c in counters]
+    out, grads = [], []
+    for task, state in zip(tasks, states):
+        for m in state.model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+        device = next(state.model.parameters()).device
+        _, metrics = task.train_step(
+            state, {k: torch.from_numpy(v).to(device)
+                    for k, v in batch.items()}, torch.Generator(device))
+        out.append(float(metrics["loss"]))
+        grads.append({n: p.grad.double().cpu()
+                      for n, p in state.model.named_parameters()
+                      if p.grad is not None})
+    fwd = 2 if remat else 1
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        2 * fwd, fwd, 3]
+    assert np.isfinite(out[0])
+    assert abs(out[0] - out[1]) <= 1e-4 * abs(out[1])
+    assert sorted(grads[0]) == sorted(grads[1])
+    assert len(grads[0]) == len(list(states[0].model.parameters()))
+    rel, cos = _leaf_gaps(grads[0], grads[1])
+    assert rel <= 5e-2 and cos >= 0.999, (rel, cos)
+    after = dict(states[0].model.named_buffers())
+    for k, v in stats.items():
         assert torch.equal(after[k], v), k

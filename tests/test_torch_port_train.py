@@ -595,12 +595,15 @@ def test_graft_backbone_loads_stage1_checkpoints(task, stage1):
 
 
 def test_unported_options_and_missing_card_raise(monkeypatch):
+    """``quant_trunks`` with ``nofreeze`` and a missing card raise;
+    ``nofreeze`` and ``remat``, ported since, build (their steps are held
+    to JAX's in tests/test_torch_port_train_full.py)."""
     with pytest.raises(ValueError, match="frozen trunks"):
         TalkingToMe2Loader(_cfg(quant_trunks=True, nofreeze=True),
                            device="cpu")
     for flag in ("nofreeze", "remat"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TalkingToMe2Loader(_cfg(**{flag: True}), device="cpu")
+        model = TalkingToMe2Loader(_cfg(**{flag: True}), device="cpu").model
+        assert getattr(model, flag) is True
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TalkingToMe2Loader(_cfg())
