@@ -98,8 +98,30 @@ Phases, each printing one line or more:
               frames with RGB at 224^2: launch counts, finite losses,
               every trainable leaf moved, the trunks' statistics, one
               validation batch.
+ 14. stage1_lam  Stage-I LAM training (``LookingAtMe`` on ``BaselineLSTM``,
+              run_lam's defaults: 64 clips x 7 frames of 224^2, lr 5e-4,
+              class weights [0.136, 0.864]), f32 with TF32 off: a warm-up
+              and 3 timed steps with no kernel launch (the stems' BNs take
+              batch statistics, which no kernel computes: library conv,
+              BN, ReLU and pool, where the JAX package runs XLA), finite
+              losses, every leaf moved (but exact-zero gradients), every
+              BN running statistic moved; one validation batch through
+              ``eval_step`` with one ``stem_pool_2d`` launch (eval BN);
+              one ``GazeLSTM`` step; one step on 2 clips on the card
+              against the same step on the CPU in f64 (loss and running
+              statistics 1e-4 relative, gradients at the train_full bars);
+ 15. stage1_ttm  the same for ``TalkingToMe`` on ``TTMBaselineLSTM`` at
+              run_ttm's 400-frame budget: buckets of 26 x 15 and 2 x 150
+              frames with their raw audio, each warmed up, then 3 timed
+              steps (15, 150, 15);
+ 16. stage1_asd  the same for ``ActiveSpeakerDetection`` on
+              ``TalkNetWithHeads`` at run_asd's 2500-frame budget, 16
+              tracks x 150 faces of 112^2 with MFCC, lr 1e-4 decayed 0.95
+              a step, dropout 0.1 (off for the card vs CPU step); its
+              validation launches one ``stem_pool_3d``.
 
-Then one JSON line of every kernel, and as the last line
+Then one JSON line of every kernel (with its launches on each training
+path and each Stage-I validation forward), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Float32 runs in full f32 throughout: TF32 is off for cuDNN and for
 matmuls, so the card and the CPU compute the same function.
@@ -204,6 +226,25 @@ ASD_TRAIN_STEPS = 2
 FULL_LOSS_RTOL = 1e-4
 FULL_GRAD_RTOL = 5e-2
 FULL_GRAD_COSINE = 0.999
+# Stage-I training (stage1_*), at the CLIs' full widths: run_lam's 64 clips
+# x 7 frames of 224^2 (egot2x/cli/run_lam.py:28-46); run_ttm's 400-frame
+# budget as a bucket of 26 x 15 frames and one of 2 x 150
+# (egot2x/cli/run_ttm.py:24-29), raw audio T / 30 s at 16 kHz; run_asd's
+# 2500-frame budget as 16 tracks x 150 faces of 112^2 with MFCC
+# (egot2x/cli/run_asd.py:20-24). Card vs CPU on 2 clips or tracks with
+# dropout off, from the seeded state: the card's step in f64 against the
+# CPU's f64 step at the train_full bars leaf by leaf, loss and BN running
+# statistics 1e-4 relative (statistics to each layer's largest); the
+# card's f32 step against the f64 one at the same loss, statistics and
+# cosine bars and by the whole gradient's norm. No f32 step can be held to
+# the f64 one leaf by leaf: with every BN on batch statistics, a near-tie
+# or a leaf whose gradient nearly cancels (a PReLU scalar, an SE block's
+# 2-unit bias) lands ~1e-1 off on either device (PERF.md)
+LAM_CLIPS, LAM_FRAMES = 64, 7
+LAM_WEIGHTS = [0.136, 0.864]
+TTM_BUCKETS = ((26, 15), (2, 150))
+STAGE1_STATS_RTOL = 1e-4
+STAGE1_CHECK_RUNS = 4   # card steps a check: 2 default cuDNN, 2 deterministic
 # card vs CPU train step: f32 (TF32 off) and the int8 bars of ROADMAP.md
 # §3 item 3 (the JAX package's full-translator int8 gate: cosine > 0.99)
 TRAIN_LOSS_RTOL = {False: 1e-4, True: 1e-2}
@@ -1195,13 +1236,13 @@ def asd_phase(card):
     path."""
     import torch
 
-    from egot2x_torch.core import bridge
+    from egot2x_torch.core.config import Config
     from egot2x_torch.core.registry import build_model
     from egot2x_torch.tasks.asd import ActiveSpeakerDetection
 
-    model = build_model("TalkNetWithHeads")
-    bridge.load_jax_variables(model, bridge.random_jax_variables(model, SEED))
-    task = ActiveSpeakerDetection(model)
+    task = ActiveSpeakerDetection(Config(model="TalkNetWithHeads", lr=1e-4))
+    state = task.build_state(SEED)   # the seeded weights through the bridge
+    model = state.model
     requests = {"bucket": (_asd_batch(ASD_TRACKS, ASD_FRAMES, SEED + 2),
                            dict(stem_pool_3d=1)),
                 "track": (_asd_batch(1, ASD_LONG, SEED + 3),
@@ -1230,10 +1271,10 @@ def asd_phase(card):
             phase("asd_check", request=name, vs="cpu, track 0",
                   max_abs_err=errs, tol=LOGIT_TOL)
         else:
-            got_eval = task.eval_step(batch)
+            got_eval = task.eval_step(state, batch)
             with _plain_attention(), torch.no_grad():
                 want = model(batch["mfcc"], batch["faces"])
-                want_eval = task.eval_step(batch)
+                want_eval = task.eval_step(state, batch)
             errs = _check_close("asd track, flash vs plain attention", outs,
                                 want)
             agree = all(torch.equal(got_eval[k], want_eval[k])
@@ -1329,35 +1370,83 @@ def _no_dropout(model):
             m.p = 0.0
 
 
-def _card_cpu_step(task, state, batch):
-    """One train step with dropout off on the first TRAIN_CHECK_CLIPS clips
-    of ``batch``, on the card and on the CPU from the card model's state
-    (weights and int8 scales), through a CPU task of the same kind and
-    configuration: (card loss, CPU loss, card gradients, CPU gradients,
-    seconds of the CPU step)."""
+def _check_slice(batch, f64=False, cpu=False):
+    """The tensors of ``batch`` on its first TRAIN_CHECK_CLIPS clips; on the
+    CPU with ``cpu``, and there floats in f64 with ``f64``."""
     import torch
 
-    small = {k: v[:TRAIN_CHECK_CLIPS] for k, v in batch.items()
-             if isinstance(v, torch.Tensor)}
-    cpu_task = type(task)(task.cfg, device="cpu")
-    cpu_state = cpu_task.build_state(SEED)
-    cpu_task.model.load_state_dict(
-        {k: v.cpu() for k, v in state.model.state_dict().items()})
+    out = {k: v[:TRAIN_CHECK_CLIPS] for k, v in batch.items()
+           if isinstance(v, torch.Tensor)}
+    if cpu:
+        out = {k: v.cpu() for k, v in out.items()}
+    if f64:
+        out = {k: v.double() if v.is_floating_point() else v
+               for k, v in out.items()}
+    return out
+
+
+def _twin(task, state, f64=False, device="cpu"):
+    """A task of ``task``'s kind and configuration on ``device`` holding
+    the card model's state (weights, statistics and int8 scales), dropout
+    off, and its train state. ``f64``: the model computes in f64
+    (parameters and compute dtype; the loss in f32, as the task computes
+    it), the exact step the card's f32 step is held to."""
+    import torch
+
+    twin = type(task)(task.cfg, device=device)
+    twin_state = twin.build_state(SEED)
+    twin.model.load_state_dict(
+        {k: v.to(device) for k, v in state.model.state_dict().items()})
+    if f64:
+        twin.model.double()
+        for m in twin.model.modules():
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = torch.float64
+    _no_dropout(twin.model)
+    return twin, twin_state
+
+
+def _grads(model, cpu=False):
+    return {n: p.grad.cpu() if cpu else p.grad
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+def _card_cpu_step(task, state, batch):
+    """One train step with dropout off on the first TRAIN_CHECK_CLIPS clips
+    of ``batch``, on the card and on the CPU from the card model's state,
+    through a CPU task of the same kind and configuration. Returns (card
+    loss, CPU loss, card gradients, CPU gradients, seconds of the CPU
+    step)."""
+    import torch
+
+    small = _check_slice(batch)
+    cpu_task, cpu_state = _twin(task, state)
     _no_dropout(state.model)
-    _no_dropout(cpu_task.model)
     state, card = task.train_step(state, small, torch.Generator("cuda"))
     t0 = time.perf_counter()
     cpu_state, cpu = cpu_task.train_step(
-        cpu_state, {k: v.cpu() for k, v in small.items()}, torch.Generator())
+        cpu_state, _check_slice(batch, cpu=True), torch.Generator())
     cpu_s = time.perf_counter() - t0
-    grads = {n: p.grad.cpu() for n, p in state.model.named_parameters()
-             if p.grad is not None}
-    cpu_grads = {n: p.grad for n, p in cpu_task.model.named_parameters()
-                 if p.grad is not None}
+    grads, cpu_grads = _grads(state.model, cpu=True), _grads(cpu_task.model)
     if sorted(grads) != sorted(cpu_grads):
         fail(f"train check: gradient leaves differ, {sorted(grads)[:5]} vs "
              f"{sorted(cpu_grads)[:5]}")
     return float(card["loss"]), float(cpu["loss"]), grads, cpu_grads, cpu_s
+
+
+def _running_stats(model):
+    return {k: v.detach().clone() for k, v in model.named_buffers()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def _stats_gap(model, cpu_model):
+    """The largest gap of a BN running statistic between the card's model
+    and the CPU's, relative to that statistic's largest magnitude in its
+    layer."""
+    cpu = _running_stats(cpu_model)
+    return max((float((v.cpu() - cpu[k]).abs().max())
+                / max(float(cpu[k].abs().max()), 1e-30)
+                for k, v in _running_stats(model).items()), default=0.0)
 
 
 def _train_check(task, state, batch):
@@ -1460,20 +1549,23 @@ def _grad_gaps(card, cpu):
     return worst, bad
 
 
-def _train_steps(task, state, batches, generator):
-    """A warm-up and the timed steps, with every launch count set to 0 just
-    before and read just after. Returns (state, losses, seconds of the
-    timed steps, peak GiB, launch counts)."""
+def _train_steps(task, state, batches, generator, warmup=1):
+    """The warm-up steps (the first ``warmup`` batches) and the timed steps,
+    with every launch count set to 0 just before and read just after.
+    Returns (state, losses, seconds of the timed steps, peak GiB, launch
+    counts)."""
     import torch
 
     for fn in _counters().values():
         fn.launches = 0
-    state, metrics = task.train_step(state, batches[0], generator)
-    losses = [metrics["loss"]]
+    losses = []
+    for batch in batches[:warmup]:
+        state, metrics = task.train_step(state, batch, generator)
+        losses.append(metrics["loss"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for batch in batches[1:]:
+    for batch in batches[warmup:]:
         state, metrics = task.train_step(state, batch, generator)
         losses.append(metrics["loss"])
     torch.cuda.synchronize()
@@ -1572,7 +1664,8 @@ def train_full_phase(card, remat):
 def _full_check(task, state, batch):
     """The card vs CPU step of training with trainable trunks: the loss and
     each leaf's gradient by relative norm and cosine."""
-    card, want, grads, cpu_grads, cpu_s = _card_cpu_step(task, state, batch)
+    card, want, grads, cpu_grads, cpu_s = _card_cpu_step(task, state,
+                                                         batch)
     worst, bad = _grad_gaps(grads, cpu_grads)
     loss_err = abs(card - want) / abs(want)
     phase("train_full_check", vs="cpu", clips=TRAIN_CHECK_CLIPS, frames=T,
@@ -1650,6 +1743,279 @@ def asd2_train_phase(card, nofreeze):
     return counts
 
 
+def _stage1_batches(name, seed):
+    """A Stage-I task's batches on the card: (warm-up and timed train
+    batches, warm-up count, a validation batch). LAM: 64 clips x 7 frames;
+    TTM: its two buckets, each warmed up, then 15, 150, 15 frames; ASD: 16
+    tracks x 150 faces."""
+    import torch
+
+    from egot2x_torch.nn.resnet2d import normalize_u8_frames
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    u8 = lambda *shape: torch.randint(0, 256, shape, generator=g,
+                                      device="cuda", dtype=torch.uint8)
+    labels = lambda *shape: torch.randint(0, 2, shape, generator=g,
+                                          device="cuda")
+
+    def lam(i):
+        return dict(frames=normalize_u8_frames(
+            u8(LAM_CLIPS, LAM_FRAMES, IMG, IMG, 3)), label=labels(LAM_CLIPS),
+            uid=[f"clip{i}_{j}" for j in range(LAM_CLIPS)])
+
+    def ttm(i, clips, frames):
+        return dict(
+            frames=normalize_u8_frames(u8(clips, frames, IMG, IMG, 3)),
+            audio=0.1 * torch.randn(clips, frames * 16000 // 30,
+                                    generator=g, device="cuda"),
+            label=labels(clips), seg_id=[f"seg{i}_{j}" for j in range(clips)],
+            start=[0] * clips, end=[frames] * clips)
+
+    def asd(i):
+        return _asd_batch(ASD_TRACKS, ASD_FRAMES, seed + i)
+
+    if name == "stage1_lam":
+        return [lam(i) for i in range(TRAIN_STEPS + 1)], 1, lam(-1)
+    if name == "stage1_ttm":
+        order = [0, 1, 0, 1, 0]     # each bucket warmed up, then 3 timed
+        return ([ttm(i, *TTM_BUCKETS[k]) for i, k in enumerate(order)], 2,
+                ttm(-1, *TTM_BUCKETS[0]))
+    return [asd(i) for i in range(TRAIN_STEPS + 1)], 1, asd(-1)
+
+
+def stage1_phase(card, name):
+    """Stage-I training of a task at its CLI's full width through the port
+    (``LookingAtMe`` on ``BaselineLSTM``, ``TalkingToMe`` on
+    ``TTMBaselineLSTM``, ``ActiveSpeakerDetection`` on ``TalkNetWithHeads``
+    with dropout 0.1 and lr decay), f32 with TF32 off: the warm-up and
+    timed train steps with every launch count set to 0 just before and
+    read just after (no kernel: the stems' BNs take batch statistics, as
+    the JAX package's XLA stems do), finite losses, every leaf moved (but
+    those whose gradient is exactly 0), every BN running statistic moved;
+    then one validation batch through ``eval_step`` (one stem kernel
+    launch, eval BN) held against the CPU's, and from the seeded state one
+    step card vs CPU on 2 clips with dropout off (TTM: on each bucket). For
+    LAM also one ``GazeLSTM`` step. Returns (train counts, validation
+    counts)."""
+    import torch
+
+    from egot2x_torch.core.config import Config
+    from egot2x_torch.tasks.asd import ActiveSpeakerDetection
+    from egot2x_torch.tasks.lam import LookingAtMe
+    from egot2x_torch.tasks.ttm import TalkingToMe
+
+    task = {
+        "stage1_lam": lambda: LookingAtMe(Config(
+            model="BaselineLSTM", weights=LAM_WEIGHTS, lr=5e-4)),
+        "stage1_ttm": lambda: TalkingToMe(Config(
+            model="TTMBaselineLSTM", weights=TTM_CLASS_WEIGHTS, lr=5e-4)),
+        "stage1_asd": lambda: ActiveSpeakerDetection(Config(
+            model="TalkNetWithHeads", lr=1e-4, lr_decay=0.95)),
+    }[name]()
+    stem = "stem_pool_3d" if name == "stage1_asd" else "stem_pool_2d"
+    state = task.build_state(SEED)
+    model = state.model
+    batches, warmup, val_batch = _stage1_batches(name, SEED + 13)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats = _running_stats(model)
+    generator = torch.Generator("cuda").manual_seed(SEED + 14)
+    state, losses, seconds, peak_gib, counts = _train_steps(
+        task, state, batches, generator, warmup)
+    expect = _expected(len(batches))
+    moved, dead, _ = _check_trained(name, model, before, {}, losses, counts,
+                                    expect)
+    still = [k for k, v in _running_stats(model).items()
+             if torch.equal(v, stats[k])]
+    if still:
+        fail(f"{name}: BN running statistics that did not move: {still[:5]}")
+    for fn in _counters().values():
+        fn.launches = 0
+    ctx = task.start_validation()
+    val_out = task.eval_step(state, val_batch)
+    task.accumulate(ctx, val_out, val_batch)
+    val_counts = {k: fn.launches for k, fn in _counters().items()}
+    val = task.finalize_validation(ctx)
+    val_expect = _expected(1, **{stem: 1})
+    timed = batches[warmup:]
+    clips = sum(len(b["mfcc"] if "mfcc" in b else b["frames"])
+                for b in timed)
+    frames = sum(b["labels"].numel() if "labels" in b else
+                 b["frames"].shape[0] * b["frames"].shape[1] for b in timed)
+    extra = {}
+    if name == "stage1_lam":
+        gaze = LookingAtMe(Config(model="GazeLSTM", weights=LAM_WEIGHTS,
+                                  lr=5e-4))
+        gaze_state = gaze.build_state(SEED)
+        for fn in _counters().values():
+            fn.launches = 0
+        gaze_state, metrics = gaze.train_step(gaze_state, batches[1],
+                                              generator)
+        extra = dict(gaze_lstm_loss=float(metrics["loss"]),
+                     gaze_lstm_launches=sum(
+                         fn.launches for fn in _counters().values()))
+        del gaze, gaze_state
+        if not math.isfinite(extra["gaze_lstm_loss"]) or \
+                extra["gaze_lstm_launches"]:
+            fail(f"{name}: GazeLSTM step {extra}")
+    phase(name, card=card, model=type(model).__name__,
+          task=type(task).__name__, dtype="float32",
+          batches=[tuple(b["labels" if "labels" in b else "frames"].shape[:2])
+                   for b in timed],
+          steps=len(timed), clips_per_s=clips / seconds,
+          frames_per_s=frames / seconds,
+          ms_per_step=seconds / len(timed) * 1e3, peak_mem_gib=peak_gib,
+          losses=losses, leaves_moved=f"{moved} of {len(before)}",
+          leaves_with_zero_gradient=dead,
+          running_statistics_moved=f"{len(stats)} of {len(stats)}",
+          launches=counts, expected_launches=expect, validation=val,
+          validation_launches=val_counts,
+          expected_validation_launches=val_expect, **extra)
+    if val_counts != val_expect:
+        fail(f"{name}: validation launches {val_counts}, expected "
+             f"{val_expect}")
+    if not all(0.0 <= v <= 1.0 for v in val.values()):
+        fail(f"{name}: validation {val}")
+    twins = {"f64": _twin(task, state, f64=True),
+             "f32": _twin(task, state),
+             "card_f64": _twin(task, state, f64=True, device="cuda")}
+    _eval_check(name, task, state, *twins["f64"], val_batch, val_out)
+    # the step checks start from the seeded state, the same point in every
+    # run: the timed steps' weights differ from run to run in the order
+    # cuDNN's default algorithms add, and how far f32 lands from f64 on a
+    # leaf depends on the point (PERF.md)
+    state = task.build_state(SEED)
+    _stage1_step_check(f"{name}_check", task, state, twins, batches[0])
+    if name == "stage1_ttm":    # the 150-frame bucket: 5 s of audio
+        _stage1_step_check(f"{name}_check_150", task, state, twins,
+                           batches[1])
+    return counts, val_counts
+
+
+def _eval_check(name, task, state, twin, twin_state, batch, out):
+    """The card's validation outputs (kernel 1 on eval BN) on the first
+    TRAIN_CHECK_CLIPS clips against the same ``eval_step`` of the f64 CPU
+    twin (the stems' plain version), within LOGIT_TOL (rtol = atol)."""
+    import torch
+
+    want = twin.eval_step(twin_state, _check_slice(batch, f64=True,
+                                                   cpu=True))
+    gaps = {}
+    for k, v in want.items():
+        if not v.is_floating_point():
+            continue
+        got = out[k][:TRAIN_CHECK_CLIPS].cpu().double()
+        gaps[k] = float(((got - v).abs() / (1.0 + v.abs())).max())
+    phase(f"{name}_eval_check", vs="cpu, f64", clips=TRAIN_CHECK_CLIPS,
+          outputs=sorted(gaps), max_rel_err=gaps, tol=LOGIT_TOL)
+    if not gaps or max(gaps.values()) > LOGIT_TOL:
+        fail(f"{name}: validation outputs off the CPU's: {gaps}")
+
+
+def _stage1_step_check(name, task, state, twins, batch):
+    """One Stage-I train step with dropout off on the first
+    TRAIN_CHECK_CLIPS clips of ``batch``, from the card model's state, in
+    two parts. The card's path computes the step the CPU's does: the
+    card's step in f64 against the CPU's f64 step, loss and running
+    statistics within FULL_LOSS_RTOL and STAGE1_STATS_RTOL, each gradient
+    leaf within FULL_GRAD_RTOL of its norm and at cosine FULL_GRAD_COSINE.
+    The card's f32 step is near the exact one: STAGE1_CHECK_RUNS card f32
+    steps, half with cuDNN's default algorithms (the training's) and half
+    with its deterministic ones, against the f64 step at the same loss and
+    statistics bars, each leaf at the cosine bar and the whole gradient
+    within FULL_GRAD_RTOL of its norm. Leaf by leaf an f32 step cannot be
+    held there: on a leaf whose gradient sums terms that nearly cancel (a
+    PReLU's scalar, an SE block's 2-unit bias) it lands ~1e-1 off f64 on
+    either device (PERF.md); the per-leaf gaps of the card's and the CPU's
+    f32 steps are printed. ``twins``: the CPU's f64 and f32 tasks and the
+    card's f64 one. The card's model is left at its state on entry."""
+    import torch
+
+    snapshot = {k: v.clone() for k, v in state.model.state_dict().items()}
+    ref = {}
+    for kind, (twin, twin_state) in twins.items():
+        on_card = kind == "card_f64"
+        twin.model.load_state_dict(
+            {k: v if on_card else v.cpu() for k, v in snapshot.items()})
+        t0 = time.perf_counter()
+        _, out = twin.train_step(
+            twin_state, _check_slice(batch, f64=kind != "f32",
+                                     cpu=not on_card),
+            torch.Generator("cuda" if on_card else "cpu"))
+        if on_card:
+            torch.cuda.synchronize()
+        ref[kind] = dict(loss=float(out["loss"]),
+                         grads=_grads(twin.model, cpu=True),
+                         seconds=time.perf_counter() - t0)
+    exact = ref["f64"]
+    if sorted(ref["card_f64"]["grads"]) != sorted(exact["grads"]):
+        fail(f"{name}: gradient leaves differ")
+    worst, bad = _grad_gaps(ref["card_f64"]["grads"], exact["grads"])
+    f64_check = dict(
+        loss_rel_err=abs(ref["card_f64"]["loss"] - exact["loss"])
+        / abs(exact["loss"]),
+        stats_rel_err=_stats_gap(twins["card_f64"][0].model,
+                                 twins["f64"][0].model),
+        max_grad_rel_norm=worst["rel"][0], leaf=worst["rel"][1],
+        min_grad_cosine=worst["cos"][0], cosine_leaf=worst["cos"][1],
+        leaves_failing=bad[:5])
+    worst, _ = _grad_gaps(ref["f32"]["grads"], exact["grads"])
+    cpu_f32 = dict(max_grad_rel_norm=worst["rel"][0], leaf=worst["rel"][1],
+                   min_grad_cosine=worst["cos"][0],
+                   cosine_leaf=worst["cos"][1])
+    _no_dropout(state.model)
+    small = _check_slice(batch)
+    runs, card_grads = [], {}
+    for i in range(STAGE1_CHECK_RUNS):
+        deterministic = i >= STAGE1_CHECK_RUNS // 2
+        state.model.load_state_dict(snapshot)
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            state, card = task.train_step(state, small,
+                                          torch.Generator("cuda"))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        grads = _grads(state.model, cpu=True)
+        card_grads.setdefault(deterministic, []).append(grads)
+        worst, _ = _grad_gaps(grads, exact["grads"])
+        whole = torch.cat([grads[k].double().flatten() for k in sorted(grads)])
+        want = torch.cat([exact["grads"][k].double().flatten()
+                          for k in sorted(grads)])
+        runs.append(dict(
+            deterministic=deterministic,
+            loss_rel_err=abs(float(card["loss"]) - exact["loss"])
+            / abs(exact["loss"]),
+            stats_rel_err=_stats_gap(state.model, twins["f64"][0].model),
+            grad_rel_norm=float((whole - want).norm() / want.norm()),
+            max_leaf_rel_norm=worst["rel"][0], leaf=worst["rel"][1],
+            min_grad_cosine=worst["cos"][0], cosine_leaf=worst["cos"][1]))
+    state.model.load_state_dict(snapshot)
+    spread = {}
+    for deterministic, (first, *rest) in card_grads.items():
+        gap = max((_grad_gaps(g, first)[0]["rel"] for g in rest),
+                  default=(0.0, None))
+        spread["deterministic" if deterministic else "default"] = dict(
+            max_rel_norm_between_runs=gap[0], leaf=gap[1])
+    phase(name, vs="cpu, f64", clips=TRAIN_CHECK_CLIPS,
+          frames=tuple(small["labels" if "labels" in small else
+                             "frames"].shape[:2]),
+          dropout=0.0, leaves=len(exact["grads"]), loss_cpu=exact["loss"],
+          loss_rtol=FULL_LOSS_RTOL, stats_rtol=STAGE1_STATS_RTOL,
+          grad_rtol=FULL_GRAD_RTOL, cosine_bar=FULL_GRAD_COSINE,
+          card_f64=f64_check, card_f32_runs=runs, card_f32_spread=spread,
+          cpu_f32=cpu_f32,
+          step_s={k: v["seconds"] for k, v in ref.items()})
+    if not (f64_check["loss_rel_err"] <= FULL_LOSS_RTOL
+            and f64_check["stats_rel_err"] <= STAGE1_STATS_RTOL
+            and not f64_check["leaves_failing"]):
+        fail(f"{name}: the card's f64 step off the CPU's: {f64_check}")
+    for run in runs:
+        if not (run["loss_rel_err"] <= FULL_LOSS_RTOL
+                and run["stats_rel_err"] <= STAGE1_STATS_RTOL
+                and run["grad_rel_norm"] <= FULL_GRAD_RTOL
+                and run["min_grad_cosine"] >= FULL_GRAD_COSINE):
+            fail(f"{name}: the card's f32 step off the f64 one: {run}")
+
+
 def _line_row(name, row, counts, replaces, route="cuda",
               source="egot2x_torch/csrc/stem_pool.cu"):
     return dict(name=name, route=route, source=source, replaces=replaces,
@@ -1698,6 +2064,9 @@ def main():
     train_counts["asd2_train"] = asd2_train_phase(card, nofreeze=False)
     train_counts["asd2_train_nofreeze"] = asd2_train_phase(card,
                                                            nofreeze=True)
+    val_counts = {}
+    for name in ("stage1_lam", "stage1_ttm", "stage1_asd"):
+        train_counts[name], val_counts[name] = stage1_phase(card, name)
     float_stem, int8_stem = ("egot2x/ops/pallas_stem.py:232",
                              "egot2x/ops/pallas_stem.py:351")
     # each kernel at its main path's input type: f32 (float slice), bf16
@@ -1727,6 +2096,8 @@ def main():
     for row in line:   # the training paths' launches, beside the serving's
         row["train_launches"] = {path: counts[row["name"]]
                                  for path, counts in train_counts.items()}
+        row["validation_launches"] = {path: counts[row["name"]]
+                                      for path, counts in val_counts.items()}
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,11 @@ The layouts differ as follows:
   * Flax MHA has separate q/k/v Dense layers, packed here into torch's
     ``in_proj_weight`` / ``in_proj_bias``;
   * BatchNorm keeps ``mean``/``var`` in ``batch_stats``; gLN's gamma/beta
-    are (C,) in JAX and (1, C, 1) here.
+    are (C,) in JAX and (1, C, 1) here;
+  * the BiLSTM's ``w_ih`` (D, 4H) and ``w_hh`` (H, 4H) of each layer and
+    direction are torch LSTM's ``weight_ih_l{k}[_reverse]`` (4H, D) and
+    ``weight_hh_l{k}[_reverse]`` (4H, H), biases as they are;
+  * ResNetSE's attention Dense layers are 1x1 Conv1d here, (out, in, 1).
 
 The map is written module by module: each entry pairs a port module path
 with a JAX module path, and the module's type says which leaves it has.
@@ -33,9 +37,13 @@ import torch
 from torch import nn
 
 from egot2x_torch.models.asd import TalkNetBackbone, TalkNetWithHeads
+from egot2x_torch.models.lam import BaselineLSTM
+from egot2x_torch.models.ttm import TTMBaselineLSTM
 from egot2x_torch.nn.common import MultiHeadAttention, TransformerEncoder
+from egot2x_torch.nn.lstm import BiLSTM
 from egot2x_torch.nn.quant import SCALE_BUFFERS
 from egot2x_torch.nn.resnet2d import BasicBlock2D, ResNet2D
+from egot2x_torch.nn.resnet_se import ResNetSE
 from egot2x_torch.nn.talknet import (AVSRResNetLayer, CrossAttentionLayer,
                                      GlobalLayerNorm, TalkNetModel,
                                      VisualFrontend)
@@ -53,6 +61,7 @@ _TO_TORCH = {
     "conv2d": lambda a: a[0].transpose(3, 2, 0, 1),
     "conv3d": lambda a: a[0].transpose(4, 3, 0, 1, 2),
     "gln": lambda a: a[0].reshape(1, -1, 1),
+    "pointwise": lambda a: a[0].T[:, :, None],
     "qkv_w": lambda a: np.concatenate([w.T for w in a], axis=0),
     "qkv_b": lambda a: np.concatenate(a, axis=0),
 }
@@ -63,6 +72,7 @@ _TO_JAX = {
     "conv2d": lambda t: [t.transpose(2, 3, 1, 0)],
     "conv3d": lambda t: [t.transpose(2, 3, 4, 1, 0)],
     "gln": lambda t: [t.reshape(-1)],
+    "pointwise": lambda t: [t[:, :, 0].T],
     "qkv_w": lambda t: [w.T for w in np.split(t, 3, axis=0)],
     "qkv_b": lambda t: np.split(t, 3, axis=0),
 }
@@ -104,6 +114,19 @@ def _leaf_rules(module: nn.Module, t: str, j: str) -> List[Rule]:
                 (t + "beta", [prm("beta")], "gln")]
     if isinstance(module, nn.PReLU):  # its alpha lives on the JAX block
         return [(t + "weight", [prm("prelu_alpha")], "id")]
+    if isinstance(module, BiLSTM):
+        rules = []
+        for k in range(module.num_layers):
+            for sfx, d in (("", "fwd"), ("_reverse", "bwd")):
+                cell = f"l{k}_{d}"
+                rules += [
+                    (f"{t}weight_ih_l{k}{sfx}", [prm(f"{cell}/w_ih")],
+                     "linear"),
+                    (f"{t}weight_hh_l{k}{sfx}", [prm(f"{cell}/w_hh")],
+                     "linear"),
+                    (f"{t}bias_ih_l{k}{sfx}", [prm(f"{cell}/b_ih")], "id"),
+                    (f"{t}bias_hh_l{k}{sfx}", [prm(f"{cell}/b_hh")], "id")]
+        return rules
     if isinstance(module, (ResNet2D, BasicBlock2D, VisualFrontend,
                            AVSRResNetLayer)):
         return []  # only int8 scales of its own (_scale_rules)
@@ -130,6 +153,42 @@ def _resnet18(t: str, j: str) -> Iterator[Tuple[str, str]]:
                 yield f"{tp}.{leaf}", f"{jp}/{leaf}"
             yield f"{tp}.downsample.0", f"{jp}/downsample_conv"
             yield f"{tp}.downsample.1", f"{jp}/downsample_bn"
+
+
+def _resnet_se(t: str, j: str) -> Iterator[Tuple[str, str]]:
+    """ResNetSE's modules but its attention's 1x1 convs
+    (``_pointwise_rules``)."""
+    yield from ((f"{t}conv1", f"{j}/conv1"), (f"{t}bn1", f"{j}/bn1"),
+                (f"{t}attention.2", f"{j}/att_bn"), (f"{t}fc", f"{j}/fc"))
+    for stage in range(1, 5):
+        for b in range(2):
+            tp, jp = f"{t}layer{stage}.{b}", f"{j}/layer{stage}_{b}"
+            for leaf in ("conv1", "bn1", "conv2", "bn2"):
+                yield f"{tp}.{leaf}", f"{jp}/{leaf}"
+            yield f"{tp}.se.fc.0", f"{jp}/se/fc0"
+            yield f"{tp}.se.fc.2", f"{jp}/se/fc1"
+            yield f"{tp}.downsample.0", f"{jp}/downsample_conv"
+            yield f"{tp}.downsample.1", f"{jp}/downsample_bn"
+
+
+def _pointwise_rules(t: str, j: str) -> List[Rule]:
+    """ResNetSE's attention convs, Dense layers in the JAX package."""
+    rules = []
+    for k, name in ((0, "att_fc0"), (3, "att_fc1")):
+        rules += [(f"{t}attention.{k}.weight",
+                   [("params", _p(f"{j}/{name}/kernel"))], "pointwise"),
+                  (f"{t}attention.{k}.bias",
+                   [("params", _p(f"{j}/{name}/bias"))], "id")]
+    return rules
+
+
+def _stage1_head(trunk: str) -> Iterator[Tuple[str, str]]:
+    """A LAM or TTM Stage-I classifier's ResNet-18 (its attribute
+    ``trunk``), BiLSTM and head; the JAX model holds the first two under
+    ``trunk/``."""
+    yield from _resnet18(f"{trunk}.", f"trunk/{trunk}")
+    yield from (("lstm", "trunk/lstm"), ("last_layer1", "last_layer1"),
+                ("last_layer2", "last_layer2"))
 
 
 def _attention_layer(t: str, j: str) -> Iterator[Tuple[str, str]]:
@@ -219,6 +278,16 @@ def bridge_rules(model: nn.Module) -> List[Rule]:
     if isinstance(model, _MFTransformerCore):
         pairs = _translator(model)
         extra = [("task_embed", [("params", ("core", "task_embed"))], "id")]
+    elif isinstance(model, BaselineLSTM):
+        pairs, extra = _stage1_head("base_model"), []
+    elif isinstance(model, TTMBaselineLSTM):
+        pairs = [*_stage1_head("video_encoder"),
+                 *_resnet_se("audio_encoder.", "trunk/audio_encoder")]
+        extra = _pointwise_rules("audio_encoder.", "trunk/audio_encoder")
+    elif isinstance(model, ResNetSE):
+        pairs, extra = _resnet_se("", ""), _pointwise_rules("", "")
+    elif isinstance(model, BiLSTM):
+        pairs, extra = [("", "")], []
     elif isinstance(model, _FrameBaseline):
         pairs = [*_trunks(model), ("fc1", "fc1")]
         extra = []
@@ -284,6 +353,9 @@ def load_jax_variables(model: nn.Module, variables) -> nn.Module:
     if missing or unexpected:
         raise KeyError(f"bridge mismatch: missing {missing}, "
                        f"unexpected {unexpected}")
+    for m in model.modules():
+        if isinstance(m, nn.LSTM):   # cuDNN's one weight buffer
+            m.flatten_parameters()
     return model
 
 
@@ -317,6 +389,8 @@ def random_jax_variables(model: nn.Module, seed: int) -> Dict[str, dict]:
             v = np.zeros(shape)
         elif leaf == "kernel":
             v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
+        elif leaf in ("w_ih", "w_hh"):   # an LSTM's (in, 4H)
+            v = rng.standard_normal(shape) / np.sqrt(shape[0])
         elif leaf in ("scale", "gamma", "var"):
             v = rng.uniform(0.8, 1.2, shape)
         elif leaf == "prelu_alpha":

@@ -62,6 +62,8 @@ def build_model(name: str, device=None, **kwargs) -> torch.nn.Module:
     :func:`egot2x_torch.nn.quant.calibrate` (or calibrated scales in what
     it loads) before int8 inference, and raises without them."""
     import egot2x_torch.models.asd  # noqa: F401  (registers)
+    import egot2x_torch.models.lam  # noqa: F401  (registers)
+    import egot2x_torch.models.ttm  # noqa: F401  (registers)
     import egot2x_torch.translate.egot2s_hhi  # noqa: F401  (registers)
 
     return place(MODEL_REGISTRY.get(name)(**kwargs), device)

@@ -1,12 +1,17 @@
 """ASD (active speaker detection) models: TalkNet and its per-frame heads.
 
-Counterpart of ``egot2x/models/asd.py``, inference. ``talkNetModel`` is
+Counterpart of ``egot2x/models/asd.py``. ``talkNetModel`` is
 the registered backbone; ``TalkNetWithHeads`` adds the reference's loss
 modules' linear heads, ``lossAV.FC`` 256 -> 2 and ``lossA.FC`` /
 ``lossV.FC`` 128 -> 2, and returns their logits. Module names are the
 reference's (``model`` for the backbone, ``lossAV.FC``, ``lossA.FC``,
 ``lossV.FC``), so its TalkNet checkpoints load as they are
 (``strict=False``: they also hold the loss modules' criteria).
+
+In training mode (Stage I, ``tasks/asd.py``) TalkNet's BNs normalise with
+batch statistics and its attention layers drop out at rate 0.1, with the
+masks drawn from the generator that ``nn/common.py::set_dropout_generator``
+hands the model.
 
 On a face track of ``FLASH_MIN_TOKENS`` (2048) frames or more, TalkNet's
 three attention layers run through the flash kernel on the card

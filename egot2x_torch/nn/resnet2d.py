@@ -11,10 +11,13 @@ Frames enter NHWC, the JAX package's layout. The stem (conv1 + bn1 + ReLU
 the NCHW tensor the stages take in ``torch.channels_last`` memory: the
 model is meant to be kept in channels_last (``build_model`` does), so no
 layout copy is made anywhere in the trunk. BatchNorm epsilon is 1e-5.
-The stem folds ``bn1``'s running statistics, so the trunk runs with its
-BNs in eval mode (a ``bn1`` in training mode raises: Stage-I training,
-with batch statistics, is not ported). With eval BNs the float path is
-differentiable, the stem through its kernel's backward (``ops/stem.py``).
+With ``bn1`` in eval mode the stem folds its running statistics into the
+kernel, differentiable through the kernel's backward (``ops/stem.py``),
+as the Stage-II translators' trunks run. In training mode (Stage I) the
+BNs normalise with batch statistics (``nn/layers.py``, flax's semantics),
+which no folded kernel computes: the stem is then the library's conv,
+the batch-statistics BN, ReLU and max-pool, where the JAX package runs
+XLA (``egot2x/nn/resnet2d.py:269-307``).
 
 With ``quant=True`` (inference only, after :func:`egot2x_torch.nn.quant.
 calibrate`) the convs of the blocks are int8 ``QuantConv2d`` and int8
@@ -30,14 +33,15 @@ computed outside (the fused LAM + TTM stem).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from egot2x_torch.data.lam import IMAGENET_MEAN, IMAGENET_STD
-from egot2x_torch.nn.layers import Conv2d, Linear
+from egot2x_torch.nn.layers import BatchNorm2d, Conv2d, Linear
 from egot2x_torch.nn.quant import QuantConv2d, record_max
 from egot2x_torch.ops.int8 import quantize_static
-from egot2x_torch.ops.stem import (check_eval_bn, fold_bn, fold_bn_quant,
-                                   stem_pool_2d, stem_pool_q_2d)
+from egot2x_torch.ops.stem import (fold_bn, fold_bn_quant, stem_pool_2d,
+                                   stem_pool_q_2d)
 
 
 def normalize_u8_frames(x: torch.Tensor,
@@ -60,14 +64,14 @@ class BasicBlock2D(nn.Module):
         conv = (lambda *a: QuantConv2d(*a, compute_dtype=dtype)) if quant \
             else (lambda *a: Conv2d(*a, bias=False))
         self.conv1 = conv(inplanes, planes, 3, stride, 1)
-        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn1 = BatchNorm2d(planes, eps=1e-5)
         self.conv2 = conv(planes, planes, 3, 1, 1)
-        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn2 = BatchNorm2d(planes, eps=1e-5)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
                 conv(inplanes, planes, 1, stride, 0),
-                nn.BatchNorm2d(planes, eps=1e-5))
+                BatchNorm2d(planes, eps=1e-5))
         self.quant_out = quant_out
         if quant_out:
             self.register_buffer("out_act_max", torch.zeros(()))
@@ -109,7 +113,7 @@ class ResNet2D(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.bn1 = BatchNorm2d(64, eps=1e-5)
         inplanes = 64
         for stage, planes in enumerate((64, 128, 256, 512)):
             stride = 1 if stage == 0 else 2
@@ -140,18 +144,26 @@ class ResNet2D(nn.Module):
                 for block in stage:
                     y, s = block.forward_int8(y, s)
         else:
-            bn = self.bn1
-            check_eval_bn(bn)
-            scale, bias = fold_bn(bn.weight, bn.bias, bn.running_mean,
-                                  bn.running_var, bn.eps)
             x = normalize_u8_frames(x, self.compute_dtype).contiguous()
-            y = stem_pool_2d(x, self.conv1.weight, scale, bias)
-            if self.quant:  # calibrating; the pool keeps the map's max
-                record_max(self.stem_act_max, y)
-            y = y.permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
+            if self.bn1.training:
+                y = self._stem_batch_stats(x)
+            else:
+                bn = self.bn1
+                scale, bias = fold_bn(bn.weight, bn.bias, bn.running_mean,
+                                      bn.running_var, bn.eps)
+                y = stem_pool_2d(x, self.conv1.weight, scale, bias)
+                if self.quant:  # calibrating; the pool keeps the map's max
+                    record_max(self.stem_act_max, y)
+                y = y.permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
             for stage in self._stages():
                 y = stage(y)
         return self.fc2(self.fc(y.mean((2, 3))))
+
+    def _stem_batch_stats(self, x):
+        """The training stem on NHWC frames: conv, BN on batch statistics,
+        ReLU, 3x3/2 max-pool -> NCHW in channels_last."""
+        y = self.bn1(self.conv1(x.permute(0, 3, 1, 2)))
+        return F.max_pool2d(torch.relu(y), 3, 2, 1)
 
     def _stem_int8(self, x):
         x = normalize_u8_frames(x, self.compute_dtype).contiguous()

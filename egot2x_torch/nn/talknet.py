@@ -18,10 +18,22 @@ defaults:
   * the cross-attention residual lands on ``src``;
   * audio and video are cut to the shorter of their two lengths.
 
-The 3D stem folds its BN's running statistics, so TalkNet runs with that
-BN in eval mode (in training mode it raises: Stage-I training is not
-ported); so does the translators' ``FrozenTalkNet``, whose parameters
-still take gradients when its owner trains it (``nofreeze``).
+  * BatchNorm momentum is flax's: 0.99 (torch's 0.01) in the stem BN and
+    the AVSR layers, 0.9 (torch's 0.1) elsewhere, with the batch
+    statistics of ``nn/layers.py`` in training mode.
+
+With the stem BN in eval mode the 3D stem folds its running statistics
+into the fused stem kernel, as the translators' ``FrozenTalkNet`` always
+runs (its parameters still take gradients when its owner trains it,
+``nofreeze``). In training mode (Stage-I ``TalkNetWithHeads``) the stem
+is the JAX package's training branch: the unpacked 3D conv, the BN on
+batch statistics, ReLU and the max-pool, as library ops; the conv runs as
+a 2D conv over each frame's 5 temporal taps (the same sums), whose weight
+gradient cuDNN takes in 2.65 ms against the 3D conv's 87.6 ms with one
+input channel (480 frames of 112^2, f32, an H100 80GB HBM3 at 700 W).
+Dropout (rate 0.1) acts in training mode at the JAX sites of the
+attention layers: the attention probabilities, the attention residual,
+the FFN's hidden layer and its output.
 
 With ``quant=True`` (inference only, after :func:`egot2x_torch.nn.quant.
 calibrate`) the visual ResNet runs int8 as in ``egot2x``: the 3D stem
@@ -35,16 +47,20 @@ compute dtype.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from egot2x_torch.nn.common import MultiHeadAttention, layer_norm
-from egot2x_torch.nn.layers import Conv1d, Conv2d, Linear, PReLU
+from egot2x_torch.nn.common import Dropout, MultiHeadAttention, layer_norm
+from egot2x_torch.nn.layers import (BatchNorm1d, BatchNorm2d, BatchNorm3d,
+                                    Conv1d, Conv2d, Linear, PReLU)
 from egot2x_torch.nn.quant import QuantConv2d, record_max
 from egot2x_torch.ops.int8 import quantize_static
-from egot2x_torch.ops.stem import (check_eval_bn, fold_bn, fold_bn_quant,
+from egot2x_torch.ops.stem import (fold_bn, fold_bn_quant, frame_taps,
                                    stem_pool_3d, stem_pool_q_3d)
 
 AVSR_BN_EPS = 1e-3
+AVSR_BN_MOMENTUM = 0.01   # torch's; flax's 0.99
+ATTENTION_DROPOUT = 0.1
 
 
 class AVSRResNetLayer(nn.Module):
@@ -54,7 +70,8 @@ class AVSRResNetLayer(nn.Module):
                  quant: bool = False, quant_out: bool = False,
                  dtype=torch.float32):
         super().__init__()
-        bn = lambda: nn.BatchNorm2d(planes, eps=AVSR_BN_EPS)
+        bn = lambda: BatchNorm2d(planes, eps=AVSR_BN_EPS,
+                                 momentum=AVSR_BN_MOMENTUM)
         conv = (lambda *a: QuantConv2d(*a, compute_dtype=dtype)) if quant \
             else (lambda *a: Conv2d(*a, bias=False))
         conv3 = lambda i, s: conv(i, planes, 3, s, 1)
@@ -115,7 +132,7 @@ class VisualFrontend(nn.Module):
         # conv, BN, ReLU and pool as one fused stem kernel
         self.frontend3D = nn.Sequential(
             nn.Conv3d(1, 64, (5, 7, 7), (1, 2, 2), (2, 3, 3), bias=False),
-            nn.BatchNorm3d(64, eps=AVSR_BN_EPS))
+            BatchNorm3d(64, eps=AVSR_BN_EPS, momentum=AVSR_BN_MOMENTUM))
         layers = [(64, 64, 1), (64, 128, 2), (128, 256, 2), (256, 512, 2)]
         self.resnet = nn.Sequential()
         for i, (inp, out, stride) in enumerate(layers):
@@ -137,8 +154,9 @@ class VisualFrontend(nn.Module):
             y, s = y.permute(0, 3, 1, 2), s[0]         # channels_last
             for layer in self.resnet:
                 y, s = layer.forward_int8(y, s)
+        elif bn.training:
+            y = self.resnet(self._stem_batch_stats(x))
         else:
-            check_eval_bn(bn)
             scale, bias = fold_bn(bn.weight, bn.bias, bn.running_mean,
                                   bn.running_var, bn.eps)
             y = stem_pool_3d(x, conv.weight, scale, bias)  # (B*T, H/4, W/4, 64)
@@ -146,6 +164,17 @@ class VisualFrontend(nn.Module):
                 record_max(self.stem_act_max, y)
             y = self.resnet(y.permute(0, 3, 1, 2))         # channels_last
         return y.mean((2, 3)).reshape(b, t, 512)
+
+    def _stem_batch_stats(self, x):
+        """The training stem on (B, T, H, W) clips: the 5x7x7 conv as a 2D
+        conv over each frame's temporal taps, BN on the batch statistics of
+        every frame's map, ReLU, 3x3/2 max-pool -> (B*T, 64, H/4, W/4)."""
+        conv, bn = self.frontend3D
+        taps = frame_taps(x).to(x.dtype).permute(0, 3, 1, 2)
+        w = conv.weight.to(x.dtype).flatten(1, 2)            # (64, 5, 7, 7)
+        y = F.conv2d(taps, w, stride=2, padding=3)            # (B*T, 64, ...)
+        y = bn(y.unsqueeze(2)).squeeze(2)   # BatchNorm3d: (N, C, 1, H, W)
+        return F.max_pool2d(torch.relu(y), 3, 2, 1)
 
 
 class GlobalLayerNorm(nn.Module):
@@ -169,7 +198,7 @@ class DSConv1d(nn.Module):
     def __init__(self, channels: int = 512):
         super().__init__()
         self.net = nn.Sequential(
-            nn.ReLU(), nn.BatchNorm1d(channels, eps=1e-5),
+            nn.ReLU(), BatchNorm1d(channels, eps=1e-5),
             Conv1d(channels, channels, 3, 1, 1, groups=channels, bias=False),
             PReLU(), GlobalLayerNorm(channels),
             Conv1d(channels, channels, 1, bias=False))
@@ -193,7 +222,7 @@ class VisualConv1D(nn.Module):
     def __init__(self):
         super().__init__()
         self.net = nn.Sequential(
-            Conv1d(512, 256, 5, 1, 2), nn.BatchNorm1d(256, eps=1e-5),
+            Conv1d(512, 256, 5, 1, 2), BatchNorm1d(256, eps=1e-5),
             nn.ReLU(), Conv1d(256, 128, 1))
 
     def forward(self, x):
@@ -217,15 +246,15 @@ class AudioSEBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride=(1, 1)):
         super().__init__()
         self.conv1 = Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn1 = BatchNorm2d(planes, eps=1e-5)
         self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn2 = BatchNorm2d(planes, eps=1e-5)
         self.se = _SqueezeExcite(planes)
         self.downsample = None
         if tuple(stride) != (1, 1) or inplanes != planes:
             self.downsample = nn.Sequential(
                 Conv2d(inplanes, planes, 1, stride, bias=False),
-                nn.BatchNorm2d(planes, eps=1e-5))
+                BatchNorm2d(planes, eps=1e-5))
 
     def forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
@@ -242,7 +271,7 @@ class AudioEncoder(nn.Module):
     def __init__(self, dtype=torch.float32):
         super().__init__()
         self.conv1 = Conv2d(1, 16, 7, (2, 1), 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(16, eps=1e-5)
+        self.bn1 = BatchNorm2d(16, eps=1e-5)
         strides = [(1, 1), (2, 2), (2, 2), (1, 1)]
         inp = 16
         for i, (f, n, s) in enumerate(zip((16, 32, 64, 128), (3, 4, 6, 3),
@@ -264,19 +293,25 @@ class AudioEncoder(nn.Module):
 
 class CrossAttentionLayer(nn.Module):
     """Post-LN block: MHA(query=tar, key=src, value=src) + 4x FFN; the
-    attention residual lands on ``src``."""
+    attention residual lands on ``src``. In training mode dropout acts on
+    the attention probabilities, the attention output, the FFN's hidden
+    layer and its output."""
 
     def __init__(self, d_model: int, num_heads: int):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, num_heads)
+        self.self_attn = MultiHeadAttention(d_model, num_heads,
+                                            ATTENTION_DROPOUT)
         self.linear1 = Linear(d_model, d_model * 4)
         self.linear2 = Linear(d_model * 4, d_model)
         self.norm1 = layer_norm(d_model)
         self.norm2 = layer_norm(d_model)
+        self.dropout, self.dropout1, self.dropout2 = (
+            Dropout(ATTENTION_DROPOUT) for _ in range(3))
 
     def forward(self, src, tar):
-        x = self.norm1(src + self.self_attn(tar, src, src))
-        return self.norm2(x + self.linear2(torch.relu(self.linear1(x))))
+        x = self.norm1(src + self.dropout1(self.self_attn(tar, src, src)))
+        h = self.dropout(torch.relu(self.linear1(x)))
+        return self.norm2(x + self.dropout2(self.linear2(h)))
 
 
 class TalkNetModel(nn.Module):

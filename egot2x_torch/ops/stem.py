@@ -510,7 +510,7 @@ def stem_pool_backward(dp, p, win, yw, scale, conv_hw):
     return dy, sums[1], sums[0]
 
 
-def _frame_taps(x):
+def frame_taps(x):
     """(B, T, H, W) clips -> (B*T, H, W, 5): each frame's 5 temporal taps
     (frames t - 2 .. t + 2 of its clip, zero past the clip's ends) as
     channels, f32."""
@@ -540,7 +540,7 @@ def _conv_grads(kind, x, weight, dy, need_x, need_w):
             dx = dx.permute(0, 2, 3, 1).to(x.dtype)
         return dx, dw
     if need_w:
-        taps = _frame_taps(x).permute(0, 3, 1, 2)
+        taps = frame_taps(x).permute(0, 3, 1, 2)
         dw = torch.nn.grad.conv2d_weight(taps, (64, 5, 7, 7), dyn, stride=2,
                                          padding=3).view(weight.shape)
     if need_x:
@@ -611,18 +611,6 @@ def stem_pool_3d(x, weight, scale, bias):
     out = _launch(3, x, w_taps, scale, bias, b, t, h, w)
     stem_pool_3d.launches += 1
     return out
-
-
-def check_eval_bn(bn):
-    """Raise unless ``bn`` (a stem's BN) is in eval mode: the stems fold
-    its running statistics into the kernel, and a BN in training mode
-    normalises with batch statistics, which no TPU kernel computes (the
-    JAX package's Stage-I training runs XLA there)."""
-    if bn.training:
-        raise NotImplementedError(
-            "a stem BN in training mode normalises with batch statistics; "
-            "the stem kernels fold running statistics. Stage-I training is "
-            "not ported yet (ROADMAP.md §1 item 2)")
 
 
 def _no_grad_int8(*tensors):

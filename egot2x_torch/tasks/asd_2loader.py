@@ -32,8 +32,8 @@ from egot2x_torch.core.registry import MODEL_REGISTRY, place
 from egot2x_torch.models.asd import LossHead
 from egot2x_torch.nn.common import set_dropout_generator
 from egot2x_torch.tasks.asd import ASD_CLASS_WEIGHTS, FrameAccuracy
-from egot2x_torch.tasks.base import Task, resolve_dtype
-from egot2x_torch.tasks.lam import weighted_cross_entropy
+from egot2x_torch.tasks.base import (Task, resolve_dtype,
+                                     weighted_cross_entropy)
 from egot2x_torch.train.optim import construct_optimizer
 from egot2x_torch.train.state import TrainState, split_params
 from egot2x_torch.translate.egot2s_hhi import FROZEN_KEYS
@@ -125,10 +125,7 @@ class ActiveSpeakerDetection2Loader(FrameAccuracy, Task):
         labels = batch["labels"].reshape(-1)[:logits.shape[0]].long()
         loss = weighted_cross_entropy(logits.float(), labels,
                                       self.class_weights)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
-        state.step += 1
+        state.apply_loss(loss)
         acc = (logits.detach().argmax(-1) == labels).float().mean()
         return state, {"loss": loss.detach(), "acc": acc}
 

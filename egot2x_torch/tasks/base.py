@@ -14,7 +14,10 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from egot2x_torch.core.registry import build_model
+from egot2x_torch.nn.common import set_dropout_generator
 from egot2x_torch.nn.quant import calibrate
+from egot2x_torch.train.optim import construct_optimizer
 from egot2x_torch.train.state import TrainState
 
 
@@ -71,3 +74,56 @@ class Task:
             raise NotImplementedError("multi-process validation is not "
                                       "ported yet (ROADMAP.md §1 item 2)")
         return ctxs[0]
+
+
+def weighted_cross_entropy(logits, labels, weights):
+    """CE of (..., C) logits against integer labels (...) with per-class
+    weights, torch ``CrossEntropyLoss(weight=)`` semantics: the mean is
+    weighted by the selected class's weight."""
+    logp = torch.log_softmax(logits, dim=-1)
+    picked = logp.gather(-1, labels[..., None])[..., 0]
+    w = torch.as_tensor(weights, device=logits.device)[labels]
+    return -(w * picked).sum() / w.sum()
+
+
+class ModelTask(Task):
+    """A task over one registered model: built from ``cfg.model`` (or
+    ``model``) on ``device`` with ``kwargs``, its weights drawn from a seed
+    (the weight bridge's seeded tree) with Adam over every parameter, and a
+    train step that minimises ``loss(outputs, batch)`` of a training-mode
+    forward whose dropout masks the step's generator draws."""
+
+    def __init__(self, cfg, device=None, model: str = None, **kwargs):
+        self.cfg = cfg
+        self.model = build_model(model or cfg.model, device=device, **kwargs)
+        self.device = next(self.model.parameters()).device
+
+    def build_state(self, seed: int = 0) -> TrainState:
+        from egot2x_torch.core import bridge   # it imports the tasks
+
+        model = self.model
+        bridge.load_jax_variables(model,
+                                  bridge.random_jax_variables(model, seed))
+        return TrainState(model, self._optimizer(
+            dict(model.named_parameters())))
+
+    def _optimizer(self, params):
+        return construct_optimizer(params, "adam", lr=self.cfg.lr)
+
+    def loss(self, outputs, batch):
+        raise NotImplementedError
+
+    def train_step(self, state, batch, generator):
+        model = set_dropout_generator(state.model.train(), generator)
+        outputs = model(*self._model_inputs(batch))
+        loss = self.loss(outputs, batch)
+        state.apply_loss(loss)
+        return state, self._metrics(loss.detach(), outputs, batch)
+
+    def _metrics(self, loss, outputs, batch):
+        return {"loss": loss}
+
+    def forward_eval(self, state, batch):
+        model = state.model.eval()
+        with torch.no_grad():
+            return model(*self._model_inputs(batch))

@@ -1,11 +1,22 @@
-"""TTM (talking-to-me) task: evaluation and per-segment mAP validation.
+"""TTM (talking-to-me) task: Stage-I training and per-segment validation.
 
-Counterpart of the validation half of ``egot2x/tasks/ttm.py``
-(``TalkingToMe``): a segment split into chunks across buckets averages
-its chunks' logits before the softmax, then AVA-style mAP and accuracy
-over segments (``metrics/map.py``). The Stage-I TTM models and their
-training come later (ROADMAP.md §1 item 3); the Stage-II translators
-train through ``tasks/ttm_2loader.py``.
+Counterpart of ``egot2x/tasks/ttm.py`` (``TalkingToMe``): a Stage-I TTM
+classifier (``TTMBaselineLSTM``, ``cfg.model``) on batches of ``frames``
+(B, T, H, W, 3), raw 16 kHz ``audio`` (B, T / 30 * 16000) and ``label``
+(B,), and for validation ``seg_id``, ``start``, ``end`` (B each) and
+optionally ``valid`` (B,). ``build_state`` draws the weights from a seed
+(the weight bridge's seeded tree) and hands every parameter to Adam with
+weight decay ``cfg.wd`` through the JAX package's mask
+(``train/optim.py``); ``train_step`` runs the model in training mode (BNs
+on batch statistics) under the CE weighted by ``cfg.weights``;
+``eval_step`` returns the logits. Validation: a segment split into chunks
+across buckets averages its chunks' logits before the softmax, then
+AVA-style mAP and accuracy over segments (``metrics/map.py``); processes'
+contexts merge by segment. The Stage-II translators train through
+``tasks/ttm_2loader.py``, which this task's steps and validation serve.
+The model runs on the card unless ``device`` says otherwise. Data loading
+(``egot2x/data/{ttm,bucketing}.py``) is not ported: loaders are passed to
+the Trainer.
 """
 
 from __future__ import annotations
@@ -17,20 +28,34 @@ import numpy as np
 import torch
 
 from egot2x_torch.metrics.map import run_evaluation
-from egot2x_torch.tasks.base import Task
+from egot2x_torch.tasks.base import (ModelTask, resolve_dtype,
+                                     weighted_cross_entropy)
+from egot2x_torch.train.optim import construct_optimizer
 
 
-class TalkingToMe(Task):
+class TalkingToMe(ModelTask):
     checkpoint_metric = "val_mAP"
     checkpoint_mode = "max"
+
+    def __init__(self, cfg, device=None, **kwargs):
+        super().__init__(cfg, device, dtype=resolve_dtype(cfg), **kwargs)
+        self.class_weights = torch.tensor(cfg.weights, dtype=torch.float32,
+                                          device=self.device)
+
+    def _optimizer(self, params):
+        return construct_optimizer(params, "adam", lr=self.cfg.lr,
+                                   weight_decay=self.cfg.get("wd", 0.0))
 
     def _model_inputs(self, batch):
         return (batch["frames"], batch["audio"])
 
+    def loss(self, logits, batch):
+        """The class-weighted CE, in f32."""
+        return weighted_cross_entropy(logits.float(), batch["label"].long(),
+                                      self.class_weights)
+
     def eval_step(self, state, batch):
-        model = state.model.eval()
-        with torch.no_grad():
-            return {"logits": model(*self._model_inputs(batch))}
+        return {"logits": self.forward_eval(state, batch)}
 
     # -- validation: per-segment logit averaging ---------------------------
     def start_validation(self):

@@ -19,30 +19,21 @@ unless ``device`` says otherwise.
 
 from __future__ import annotations
 
-import torch
-
 from egot2x_torch.core import bridge
 from egot2x_torch.core.checkpoint import graft_stage1
-from egot2x_torch.core.registry import build_model
-from egot2x_torch.nn.common import set_dropout_generator
-from egot2x_torch.tasks.base import resolve_dtype
-from egot2x_torch.tasks.lam import weighted_cross_entropy
 from egot2x_torch.tasks.ttm import TalkingToMe
-from egot2x_torch.train.optim import construct_optimizer
 from egot2x_torch.train.state import TrainState, split_params
 from egot2x_torch.translate.egot2s_hhi import FROZEN_KEYS
 
 
-
 class TalkingToMe2Loader(TalkingToMe):
     def __init__(self, cfg, device=None):
-        self.cfg = cfg
         if cfg.get("quant_trunks") and cfg.get("nofreeze"):
             raise ValueError(
                 "quant_trunks requires frozen trunks: the int8 conv path "
                 "has no gradient (nofreeze differentiates the backbones)")
         kwargs = dict(
-            dtype=resolve_dtype(cfg), hidden_dim=cfg.get("hidden_dim", 256),
+            hidden_dim=cfg.get("hidden_dim", 256),
             num_heads=cfg.get("num_heads", 4),
             num_layers=cfg.get("num_layers", 3),
             dropout=cfg.get("dropout", 0.1),
@@ -50,10 +41,7 @@ class TalkingToMe2Loader(TalkingToMe):
             remat=cfg.get("remat", False))
         if cfg.get("quant_trunks"):
             kwargs["quant"] = True
-        self.model = build_model(cfg.model, device=device, **kwargs)
-        self.class_weights = torch.tensor(
-            cfg.weights, dtype=torch.float32,
-            device=next(self.model.parameters()).device)
+        super().__init__(cfg, device, **kwargs)
 
     def build_state(self, seed: int = 0) -> TrainState:
         """Weights drawn from ``seed`` (the weight bridge's seeded tree),
@@ -65,26 +53,11 @@ class TalkingToMe2Loader(TalkingToMe):
         graft_stage1(model, c)
         frozen_keys = () if c.get("nofreeze") else FROZEN_KEYS
         trainable, _ = split_params(model, lambda k: k in frozen_keys)
-        optimizer = construct_optimizer(trainable, "adam", lr=c.lr,
-                                        weight_decay=c.get("wd", 0.0))
-        return TrainState(model, optimizer)
+        return TrainState(model, self._optimizer(trainable))
 
     def _model_inputs(self, batch):
         return (batch["frames"], batch["video_asd"], batch["audio"],
                 batch["audio_asd"])
-
-    def train_step(self, state, batch, generator):
-        """One Adam step on the weighted CE of a train-mode forward whose
-        dropout masks ``generator`` draws; the loss is computed in f32."""
-        model = set_dropout_generator(state.model.train(), generator)
-        logits = model(*self._model_inputs(batch))
-        loss = weighted_cross_entropy(logits.float(), batch["label"].long(),
-                                      self.class_weights)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
-        state.step += 1
-        return state, {"loss": loss.detach()}
 
 
 class TalkingToMe2Task(TalkingToMe2Loader):

@@ -12,8 +12,10 @@ scale and offset, (C,) in JAX and (1, C, 1) here. The packed
 ``in_proj_weight`` (2-D) and ``in_proj_bias`` (1-D) fall on the sides of
 the JAX package's q/k/v kernels and biases; ``task_embed`` (1, n, D)
 decays in both.
-``sgd``, ``adamw`` and the LR schedules are not ported yet
-(ROADMAP.md §1 item 2).
+The one schedule a task runs, the ASD task's per-step exponential decay
+(``optax.exponential_decay(lr, transition_steps=1, decay_rate=d)``, step
+k at lr d^k), is :func:`exponential_decay`. ``sgd``, ``adamw`` and the
+other schedules are not ported yet (ROADMAP.md §1 item 2).
 """
 
 from __future__ import annotations
@@ -40,3 +42,11 @@ def construct_optimizer(params: Dict[str, nn.Parameter],
         {"params": [p for p in params.values() if not decays(p)],
          "weight_decay": 0.0}]
     return torch.optim.Adam([g for g in groups if g["params"]], lr=lr)
+
+
+def exponential_decay(optimizer: torch.optim.Optimizer, decay_rate: float
+                      ) -> torch.optim.lr_scheduler.LRScheduler:
+    """optax's ``exponential_decay(lr, transition_steps=1, decay_rate)``:
+    stepped once after each optimizer step, the k-th step (from 0) runs at
+    lr * decay_rate ** k."""
+    return torch.optim.lr_scheduler.ExponentialLR(optimizer, decay_rate)

@@ -10,7 +10,10 @@ Counterpart of ``egot2x/train/trainer.py`` on one card:
     ``seed``, then validates and saves a checkpoint;
   * :class:`CheckpointManager` keeps the top k epochs by the task's
     checkpoint metric plus the last one (the epoch just saved is never
-    pruned), in the port's format (``core/checkpoint.py``);
+    pruned), in the port's format (``core/checkpoint.py``): the model's
+    weights and buffers (BN running statistics, int8 scales), the
+    optimizer and a learning-rate scheduler the state holds (the task's
+    train step steps it);
   * ``fit(resume_from=...)`` restores the last checkpoint of a directory
     and goes on at the next epoch; ``fast_dev_run`` runs one train batch
     and one validation batch and saves nothing.

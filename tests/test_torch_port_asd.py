@@ -30,8 +30,10 @@ from egot2x.tasks.asd import frame_weighted_ce as jax_ce  # noqa: E402
 from egot2x.tasks.asd_2loader import (  # noqa: E402
     ActiveSpeakerDetection2Loader as JaxASD2, _TranslatorWithHead as JaxTWH)
 from egot2x_torch.core import bridge  # noqa: E402
+from egot2x_torch.core.config import Config  # noqa: E402
 from egot2x_torch.core.registry import build_model  # noqa: E402
 from egot2x_torch.tasks import asd, asd_2loader  # noqa: E402
+from test_torch_port_train import _one_thread  # noqa: E402,F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 T_ASD = 8                       # Stage I: frames of one track
@@ -109,16 +111,14 @@ def test_frame_weighted_ce_matches_jax():
     assert asd.ASD_BUCKETS == (15, 30, 60, 90, 120, 150)
 
 
-def _check_eval(port_task, jax_cls, jax_state, batch, port_state=None):
+def _check_eval(port_task, jax_cls, jax_state, batch, port_state):
     """The port task's eval outputs and val_acc against the JAX task's
     (made without its constructor, which loads data; its eval methods read
-    only the state and the batch). ``port_state``: the state a port Task's
-    ``eval_step`` takes, None for the Stage-I task, which holds its
-    model."""
+    only the state and the batch). ``port_state``: the state the port
+    task's ``eval_step`` takes."""
     jax_task = object.__new__(jax_cls)
     want = jax_task.eval_step(jax_state, _jax_batch(batch))
-    got = (port_task.eval_step(_torch_batch(batch)) if port_state is None
-           else port_task.eval_step(port_state, _torch_batch(batch)))
+    got = port_task.eval_step(port_state, _torch_batch(batch))
     for key in ("correct", "total"):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
     np.testing.assert_allclose(got["scores"].numpy(),
@@ -137,8 +137,9 @@ def _check_eval(port_task, jax_cls, jax_state, batch, port_state=None):
 def test_eval_step_matches_jax(stage1):
     port, variables, apply = stage1
     state = SimpleNamespace(apply_fn=apply, variables=lambda: variables)
-    _check_eval(asd.ActiveSpeakerDetection(port), JaxASD, state,
-                _stage1_batch(4))
+    task = asd.ActiveSpeakerDetection(Config(lr=1e-4), device="cpu")
+    _check_eval(task, JaxASD, state, _stage1_batch(4),
+                port_state=SimpleNamespace(model=port))
 
 
 STAGE2_INPUTS = ("frames", "faces", "audio", "mfcc")

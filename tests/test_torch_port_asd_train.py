@@ -42,25 +42,12 @@ from egot2x_torch.tasks.asd_2loader import (  # noqa: E402
     ActiveSpeakerDetection2Loader)
 from egot2x_torch.translate.egot2s_hhi import FROZEN_KEYS  # noqa: E402
 from test_torch_port_train import (_as_jax, _leaves,  # noqa: E402
-                                   _no_dropout)
+                                   _no_dropout, _one_thread)
 
 D, HEADS, LAYERS = 64, 4, 1
 B, T, IMG = 2, 4, 64
 LR, SEED = 1e-3, 1
 TRUNK_RTOL = 2e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """PyTorch's CPU ops on one intra-op thread while this module runs: the
-    tier-1 suite runs six test processes on the machine's cores, and each
-    process's default pool of one thread a core oversubscribes them (this
-    module's steps ran ~100x slower there); alone, one thread costs them
-    little. Restored after the module."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _batch(seed):

@@ -9,6 +9,9 @@ step on the card against the CPU (loss 1e-4 relative, gradient cosines
 against their plain versions, the differentiable stem against autograd
 of the plain version, the int8 stems' refusal of inputs that need grad,
 and ``nofreeze`` / ``remat`` train steps on the card against the CPU.
+Stage I: stems in training mode launch no kernel (batch statistics, as
+library ops) and in eval mode one; each Stage-I task's step on the card
+against the CPU.
 
 Marked ``cuda``; each test skips when the process sees no CUDA card. This
 file imports neither JAX nor the JAX package, so on a machine without JAX
@@ -826,3 +829,99 @@ def test_trainable_trunk_step_on_card_matches_cpu(cuda, remat):
     after = dict(states[0].model.named_buffers())
     for k, v in stats.items():
         assert torch.equal(after[k], v), k
+
+
+def test_training_mode_stems_launch_no_kernel(cuda):
+    """A ResNet-18 and TalkNet in training mode (Stage I) run their stems
+    with batch statistics, as library ops: no stem kernel launch; in eval
+    mode each launches its kernel once."""
+    from egot2x_torch.nn.common import set_dropout_generator
+    from egot2x_torch.nn.resnet2d import ResNet2D
+    from egot2x_torch.nn.talknet import TalkNetModel
+
+    frames = torch.randn(4, 64, 64, 3, device=cuda)
+    faces = torch.rand(2, 4, 64, 64, device=cuda) * 255
+    mfcc = torch.randn(2, 16, 13, device=cuda)
+    resnet = ResNet2D().to(cuda)
+    talknet = set_dropout_generator(TalkNetModel().to(cuda),
+                                    torch.Generator(cuda))
+    for mode, launches in ((True, 0), (False, 1)):
+        before = (stem.stem_pool_2d.launches, stem.stem_pool_3d.launches)
+        with torch.no_grad():
+            resnet.train(mode)(frames)
+            talknet.train(mode)(mfcc, faces)
+        torch.cuda.synchronize()
+        assert (stem.stem_pool_2d.launches - before[0],
+                stem.stem_pool_3d.launches - before[1]) == (launches,
+                                                            launches), mode
+
+
+def _stage1_batch(name, rng):
+    if name == "BaselineLSTM":
+        return dict(frames=rng.standard_normal((2, 7, 64, 64, 3)).astype(
+            np.float32), label=np.array([0, 1]))
+    if name == "TTMBaselineLSTM":
+        return dict(frames=rng.standard_normal((2, 15, 64, 64, 3)).astype(
+            np.float32), audio=(rng.standard_normal((2, 8000)) * 0.1).astype(
+                np.float32), label=np.array([1, 0]))
+    return dict(mfcc=rng.standard_normal((2, 60, 13)).astype(np.float32),
+                faces=rng.uniform(0, 255, (2, 15, 112, 112)).astype(
+                    np.float32), labels=rng.integers(0, 2, (2, 15)))
+
+
+@pytest.mark.parametrize("name", ["BaselineLSTM", "TTMBaselineLSTM",
+                                  "TalkNetWithHeads"])
+def test_stage1_step_on_card_matches_cpu(cuda, name):
+    """One Stage-I train step of each task (dropout off) on the card in f32
+    and on the CPU in f64 from the same weights: no stem kernel launch; the
+    loss to 1e-4 relative; every BN running statistic to 1e-4 of its
+    layer's largest; every gradient leaf within 5e-2 of its norm and at
+    cosine >= 0.999 (a ReLU input or a pool window within f32 rounding of
+    a tie moves the leaves below it through the batch-statistics BNs'
+    backward: an f32 CPU step lands up to ~1e-2 off the f64 one itself; a
+    gradient routed wrong is off by O(1))."""
+    from egot2x_torch.core.config import Config
+    from egot2x_torch.nn.common import Dropout
+    from egot2x_torch.tasks.asd import ActiveSpeakerDetection
+    from egot2x_torch.tasks.lam import LookingAtMe
+    from egot2x_torch.tasks.ttm import TalkingToMe
+
+    cls, cfg = {
+        "BaselineLSTM": (LookingAtMe, dict(weights=[0.136, 0.864])),
+        "TTMBaselineLSTM": (TalkingToMe, dict(weights=[0.266, 0.734],
+                                              wd=1e-4)),
+        "TalkNetWithHeads": (ActiveSpeakerDetection, dict(lr_decay=0.95)),
+    }[name]
+    cfg = Config(model=name, lr=1e-3, **cfg)
+    batch = _stage1_batch(name, np.random.default_rng(27))
+    counters = (stem.stem_pool_2d, stem.stem_pool_3d)
+    before = [c.launches for c in counters]
+    losses, grads, stats = [], [], []
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        task = cls(cfg, device=device)
+        state = task.build_state(0)
+        state.model.to(dtype)
+        for m in state.model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = dtype
+        inputs = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        _, metrics = task.train_step(
+            state, {k: v.to(dtype) if v.is_floating_point() else v
+                    for k, v in inputs.items()}, torch.Generator(device))
+        losses.append(float(metrics["loss"]))
+        grads.append({n: p.grad.double().cpu()
+                      for n, p in state.model.named_parameters()
+                      if p.grad is not None})
+        stats.append({k: v.cpu() for k, v in state.model.named_buffers()
+                      if k.endswith(("running_mean", "running_var"))})
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 0]
+    assert np.isfinite(losses[0])
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+    for k, v in stats[1].items():
+        assert float((stats[0][k].double() - v).abs().max()) <= 1e-4 * float(
+            v.abs().max()), k
+    assert sorted(grads[0]) == sorted(grads[1])
+    rel, cos = _leaf_gaps(grads[0], grads[1])
+    assert rel <= 5e-2 and cos >= 0.999, (rel, cos)

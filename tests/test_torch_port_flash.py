@@ -25,6 +25,7 @@ from egot2x.ops.pallas_attention import flash_attention as jax_flash  # noqa: E4
 from egot2x_torch.core import bridge  # noqa: E402
 from egot2x_torch.nn.talknet import CrossAttentionLayer  # noqa: E402
 from egot2x_torch.ops import attention, flash  # noqa: E402
+from test_torch_port_train import _one_thread  # noqa: E402,F401
 
 FLASH_TOL = dict(rtol=1e-4, atol=1e-5)
 LAYER_TOL = dict(rtol=1e-4, atol=1e-4)

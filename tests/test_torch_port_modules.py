@@ -21,6 +21,7 @@ from egot2x_torch.core import bridge  # noqa: E402
 from egot2x_torch.nn import common  # noqa: E402
 from egot2x_torch.nn.resnet2d import ResNet2D  # noqa: E402
 from egot2x_torch.nn.talknet import TalkNetModel  # noqa: E402
+from test_torch_port_train import _one_thread  # noqa: E402,F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -41,6 +41,7 @@ from egot2x_torch.nn.quant import (QuantConv2d, calibrate,  # noqa: E402
 from egot2x_torch.nn.resnet2d import ResNet2D  # noqa: E402
 from egot2x_torch.nn.talknet import TalkNetModel  # noqa: E402
 from egot2x_torch.ops.int8 import conv2d_int8  # noqa: E402
+from test_torch_port_train import _one_thread  # noqa: E402,F401
 
 D, HEADS, LAYERS = 32, 4, 1
 B, T, IMG, GREY = 2, 4, 32, 48

@@ -49,6 +49,7 @@ from egot2x.ops.pallas_stem import (  # noqa: E402
     fused_stem_pool_q, pack_stem_kernel, pack_stem_kernel_3d, s2d_input,
     s2d_input_3d)
 from egot2x_torch.ops import stem  # noqa: E402
+from test_torch_port_train import _one_thread  # noqa: E402,F401
 
 FLASH_SHAPES = [(257, 130, 40), (96, 160, 16), (160, 96, 32)]  # N, S, D
 F32_TOL = dict(rtol=1e-4, atol=1e-5)

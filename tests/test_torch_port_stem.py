@@ -16,6 +16,7 @@ from egot2x.ops.pallas_stem import (  # noqa: E402
     flatten_packed_kernel, fold_bn, fused_stem_pool, pack_stem_kernel,
     pack_stem_kernel_3d, s2d_input, s2d_input_3d)
 from egot2x_torch.ops import stem  # noqa: E402
+from test_torch_port_train import _one_thread  # noqa: E402,F401
 
 
 def _bn(rng):

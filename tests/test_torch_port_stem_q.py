@@ -29,6 +29,7 @@ from egot2x.ops.pallas_stem import (  # noqa: E402
     flatten_packed_kernel, fold_bn_quant, fused_stem_pool_q,
     pack_stem_kernel, s2d_input)
 from egot2x_torch.ops import int8, stem  # noqa: E402
+from test_torch_port_train import _one_thread  # noqa: E402,F401
 
 SHARE_EQUAL = 0.999
 

@@ -50,7 +50,7 @@ from egot2x_torch.metrics.map import run_evaluation  # noqa: E402
 from egot2x_torch.models.lam import LAMBackbone  # noqa: E402
 from egot2x_torch.nn.common import Dropout, set_dropout_generator  # noqa: E402
 from egot2x_torch.nn.quant import scale_buffers  # noqa: E402
-from egot2x_torch.tasks.lam import weighted_cross_entropy  # noqa: E402
+from egot2x_torch.tasks.base import weighted_cross_entropy  # noqa: E402
 from egot2x_torch.tasks.ttm_2loader import (TalkingToMe2Loader,  # noqa: E402
                                             TalkingToMe2Task)
 from egot2x_torch.train.optim import construct_optimizer  # noqa: E402
@@ -64,6 +64,21 @@ WEIGHTS = [0.266, 0.734]
 LR, WD, STEPS = 1e-3, 1e-2, 3
 SEED = 1
 INPUTS = ("frames", "video_asd", "audio", "audio_asd")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """PyTorch's CPU ops on one intra-op thread while a module runs. The
+    tier-1 suite runs six test processes on the machine's cores, and each
+    process's default pool of one thread a core oversubscribes them (the
+    CPU steps of tests/test_torch_port_train_full.py ran up to ~100x
+    slower there); one thread also makes f32 sums independent of the core
+    count. Restored after the module. The other port test modules import
+    it, which makes it theirs too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _cfg(**kw):
@@ -332,11 +347,15 @@ def _logits(model, batch, generator=None):
 
 @pytest.fixture(scope="module")
 def dropout_model(task):
-    """The flagship at dropout 0.5 with the task's first weights."""
+    """The flagship at dropout 0.5 with the task's first weights, its
+    trunks frozen as the task's are: on one thread the CPU's linear layers
+    round a weight that requires grad apart from one that does not (even
+    under ``no_grad``), which is not what the tests here compare."""
     model = build_model("TaskFusionMFTransformer3Task", device="cpu",
                         hidden_dim=D, num_heads=HEADS, num_layers=LAYERS,
                         dropout=0.5)
     model.load_state_dict(task[2])
+    split_params(model, lambda k: k in FROZEN_KEYS)
     return model
 
 

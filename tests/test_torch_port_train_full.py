@@ -57,7 +57,7 @@ from egot2x_torch.train.optim import construct_optimizer  # noqa: E402
 from egot2x_torch.train.state import TrainState, split_params  # noqa: E402
 from egot2x_torch.translate.egot2s_hhi import FROZEN_KEYS  # noqa: E402
 from test_torch_port_train import (_as_jax, _leaves,  # noqa: E402
-                                   _no_dropout)
+                                   _no_dropout, _one_thread)
 
 D, HEADS, LAYERS = 64, 4, 1
 B, T, IMG = 2, 4, 64
@@ -69,19 +69,6 @@ LATER_STEP_RTOL = 5e-5
 # fall on the other side of the kink than in JAX's f32 forward (PERF.md)
 TRUNK_LATER_RTOL = 2e-2
 INPUTS = ("frames", "video_asd", "audio", "audio_asd")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """PyTorch's CPU ops on one intra-op thread while this module runs: the
-    tier-1 suite runs six test processes on the machine's cores, and each
-    process's default pool of one thread a core oversubscribes them (this
-    module's steps ran ~100x slower there); alone, one thread costs them
-    little. Restored after the module."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _cfg(**kw):
@@ -461,18 +448,64 @@ def test_int8_stems_refuse_inputs_that_need_grad():
 
 
 def test_stem_bn_in_training_mode_raises():
-    """A stem whose BN is in training mode would normalise with batch
-    statistics: the port raises (Stage-I training is not ported), both
-    geometries; the translators' backbones stay in eval under train()."""
-    frames = torch.zeros(1, 32, 32, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ResNet2D().train()(frames)
-    talknet = TalkNetModel().train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        talknet(torch.zeros(1, 8, 13), torch.zeros(1, 2, 32, 32))
+    """The one configuration that would train an int8 trunk raises
+    (``quant_trunks`` with ``nofreeze``); a translator's ``train()`` leaves
+    every trunk stem's BN in eval, so under ``nofreeze`` its stems stay on
+    the folded-statistics kernels and never take batch statistics."""
     with pytest.raises(ValueError, match="frozen trunks"):
         TalkingToMe2Loader(_cfg(quant_trunks=True, nofreeze=True),
                            device="cpu")
+    model = TalkingToMe2Loader(_cfg(nofreeze=True), device="cpu").model
+    model.train()
+    stems = [m.bn1 for m in model.modules() if isinstance(m, ResNet2D)]
+    stems += [m.visualFrontend.frontend3D[1] for m in model.modules()
+              if isinstance(m, TalkNetModel)]
+    assert len(stems) >= 2
+    assert not any(bn.training for bn in stems)
+
+
+def test_training_mode_stems_take_batch_statistics(monkeypatch):
+    """A stem whose BN is in training mode normalises with batch
+    statistics (Stage I), which no folded stem kernel computes: ResNet2D's
+    and TalkNet's stems then run the library conv, the BN on the batch's
+    statistics (updating the running ones at flax's momentum, 0.9 and
+    0.99, with the biased variance), ReLU and the pool, and never reach
+    the stem wrappers (made to raise here)."""
+    import egot2x_torch.nn.resnet2d as resnet2d
+    import egot2x_torch.nn.talknet as talknet_module
+    import torch.nn.functional as F
+
+    from egot2x_torch.nn.common import set_dropout_generator
+
+    def refuse(*args):
+        raise AssertionError("a training-mode stem reached the kernel")
+
+    monkeypatch.setattr(resnet2d, "stem_pool_2d", refuse)
+    monkeypatch.setattr(talknet_module, "stem_pool_3d", refuse)
+    rng = np.random.default_rng(4)
+    frames = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(
+        np.float32))
+    model = ResNet2D().train()
+    model(frames)
+    with torch.no_grad():
+        y = F.conv2d(frames.permute(0, 3, 1, 2), model.conv1.weight,
+                     stride=2, padding=3)
+    var, mean = torch.var_mean(y, dim=(0, 2, 3), correction=0)
+    torch.testing.assert_close(model.bn1.running_mean, 0.1 * mean)
+    torch.testing.assert_close(model.bn1.running_var, 0.9 + 0.1 * var)
+
+    faces = torch.from_numpy(rng.uniform(0, 255, (2, 3, 32, 32)).astype(
+        np.float32))
+    talknet = set_dropout_generator(TalkNetModel().train(),
+                                    torch.Generator())
+    talknet(torch.zeros(2, 12, 13), faces)
+    conv, bn = talknet.visualFrontend.frontend3D
+    with torch.no_grad():
+        y = F.conv3d(((faces / 255.0 - 0.4161) / 0.1688).unsqueeze(1),
+                     conv.weight, stride=(1, 2, 2), padding=(2, 3, 3))
+    var, mean = torch.var_mean(y, dim=(0, 2, 3, 4), correction=0)
+    torch.testing.assert_close(bn.running_mean, 0.01 * mean)
+    torch.testing.assert_close(bn.running_var, 0.99 + 0.01 * var)
 
 
 def test_bench_train_smoke_with_nofreeze_and_remat():
