@@ -22,8 +22,10 @@ Phases, each printing one line or more:
               plain version at a layer1 and a layer4 shape, bit for bit;
      flash    the flash-attention kernel (mma.sync: bf16, or 3xTF32 for f32)
               against its plain version at TalkNet's shapes on a 2048-frame
-              track ((8, 2048, 16) and (8, 2048, 32)) and the JAX oracle's
-              odd (2, 257, 40) over 130 keys, f32 and bf16, with its time
+              track ((8, 2048, 16) and (8, 2048, 32)), the EgoT2-g prompt
+              encoder's on a 700-frame ASD track ((4, 2100, 64)), D 256
+              and the JAX oracle's odd (2, 257, 40) over 130 keys, f32 and
+              bf16, with its time
               beside the plain version's, ``scaled_dot_product_attention``'s
               and the card's bound;
   5. slice    the float flagship ``TaskFusionMFTransformer3Task`` at the
@@ -119,9 +121,28 @@ Phases, each printing one line or more:
               tracks x 150 faces of 112^2 with MFCC, lr 1e-4 decayed 0.95
               a step, dropout 0.1 (off for the card vs CPU step); its
               validation launches one ``stem_pool_3d``.
+ 17. egot2g  EgoT2-g HHI at run_multitask's widths (hidden 256, 4 heads, 3
+              layers, FFN 2048, dropout 0.1, lr 1e-4), seeded weights
+              through ``build_state``, on one combined batch (LAM 4 clips
+              x 7 frames, TTM and ASD 2 x 15 frames, RGB at 224^2, grey
+              faces, raw audio, MFCC): ``Unified3TaskTranslation`` and
+              ``Unified3Task`` answer it through ``eval_step`` (one
+              encoding a task: 5 + 2 and 2 + 1 stem launches; clip 0 of
+              each task against the port's CPU ``predict``); ASD
+              ``predict`` of the translation model on one 700-frame track
+              (three flash launches at (4, 2100, 64), one an encoder layer,
+              checked against plain attention); then a warm-up and 3 timed
+              frozen train steps of ``Unified3TaskTranslation`` (f32, TF32
+              off): launch counts, finite losses, every core leaf moved,
+              the backbones bit for bit, one step with dropout off on 2
+              clips of each task against the CPU's (loss 1e-4 relative,
+              gradient cosine >= 0.99999); ``Trainer.fit`` with
+              ``fast_dev_run`` on a ``CombinedLoader`` (one step and one
+              validation batch, their launch counts).
 
 Then one JSON line of every kernel (with its launches on each training
-path and each Stage-I validation forward), and as the last line
+path, each Stage-I validation forward and each EgoT2-g path), and as the
+last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Float32 runs in full f32 throughout: TF32 is off for cuDNN and for
 matmuls, so the card and the CPU compute the same function.
@@ -173,7 +194,10 @@ SOURCES = ("stem_pool", "flash_attention")   # egot2x_torch/csrc/<name>.cu
 # oracle's odd shape (tests/test_pallas_attention.py)
 FLASH_SHAPES = [("cross", 8, 2048, 2048, 16), ("self_av", 8, 2048, 2048, 32),
                 ("oracle", 2, 257, 130, 40),
-                ("wide", 2, 2048, 2048, 256)]   # D > 128: the chunked body
+                ("wide", 2, 2048, 2048, 256),   # D > 128: the chunked body
+                # the EgoT2-g prompt encoder on one 700-frame ASD track
+                # (3 x 700 tokens, 4 heads of 256 / 4)
+                ("prompt", 4, 3 * 700, 3 * 700, 64)]
 FLASH_PER_FORWARD = {"cross": 2, "self_av": 1}   # launches on the track
 FLASH_ITERS = 50   # launches a graph replays to time a row
 # kernel vs plain: f32 as tests/test_pallas_attention.py:27 holds the Pallas
@@ -245,6 +269,19 @@ LAM_WEIGHTS = [0.136, 0.864]
 TTM_BUCKETS = ((26, 15), (2, 150))
 STAGE1_STATS_RTOL = 1e-4
 STAGE1_CHECK_RUNS = 4   # card steps a check: 2 default cuDNN, 2 deterministic
+# EgoT2-g HHI (egot2g) at run_multitask's widths (egot2x/cli/run_multitask
+# .py:20-40): hidden 256, 4 heads, 3 layers, FFN 2048, dropout 0.1, Adam lr
+# 1e-4; one combined batch of LAM lam_batch 4 clips x 7 frames and TTM and
+# ASD 2 clips or tracks of the mt_frames bucket, 15 frames, RGB at 224^2
+# (egot2x_torch/tools/profile_egot2g.py's config() and combined_batches());
+# ASD predict on one track of 700 frames, whose 3 x 700 prompt tokens take
+# the flash route (>= 2048; TalkNet's 700 stay below it)
+MT_TASKS = {"Unified3TaskTranslation": "TaskTranslationPromptTransformer",
+            "Unified3Task": "TaskPromptTransformer"}
+# stem launches of one encoding of the combined batch (2D, 3D): the
+# translation model runs LAM for lam, and LAM, TTM and TalkNet for ttm and
+# for asd; the baseline one trunk a task
+MT_STEMS = {"Unified3TaskTranslation": (5, 2), "Unified3Task": (2, 1)}
 # card vs CPU train step: f32 (TF32 off) and the int8 bars of ROADMAP.md
 # §3 item 3 (the JAX package's full-translator int8 gate: cosine > 0.99)
 TRAIN_LOSS_RTOL = {False: 1e-4, True: 1e-2}
@@ -955,7 +992,7 @@ def _flash_line_row(rows, counts):
     bound_by = max(mix, key=lambda rw: rw[0]["bound_ms"] * rw[1])[0]["bound_by"]
     return dict(name="flash_attention", route="cuda",
                 source="egot2x_torch/csrc/flash_attention.cu",
-                replaces="egot2x/ops/pallas_attention.py:77", dtype="float32",
+                replaces="egot2x/ops/pallas_attention.py:93", dtype="float32",
                 design=DESIGNS["flash_attention", "float32"],
                 shapes="mean per launch of one 2048-frame TalkNet forward: "
                        "2 x (8, 2048, 16), 1 x (8, 2048, 32)",
@@ -1371,10 +1408,13 @@ def _no_dropout(model):
 
 
 def _check_slice(batch, f64=False, cpu=False):
-    """The tensors of ``batch`` on its first TRAIN_CHECK_CLIPS clips; on the
-    CPU with ``cpu``, and there floats in f64 with ``f64``."""
+    """The tensors of ``batch`` (of each task's batch, for a multi-task
+    ``{task: batch}``) on its first TRAIN_CHECK_CLIPS clips; on the CPU
+    with ``cpu``, and there floats in f64 with ``f64``."""
     import torch
 
+    if all(isinstance(v, dict) for v in batch.values()):
+        return {k: _check_slice(v, f64, cpu) for k, v in batch.items()}
     out = {k: v[:TRAIN_CHECK_CLIPS] for k, v in batch.items()
            if isinstance(v, torch.Tensor)}
     if cpu:
@@ -2016,6 +2056,214 @@ def _stage1_step_check(name, task, state, twins, batch):
             fail(f"{name}: the card's f32 step off the f64 one: {run}")
 
 
+def _mt_shapes(mt):
+    """The combined batch's (clips, frames) of each task."""
+    return dict(lam=[mt.LAM_CLIPS, mt.LAM_FRAMES], ttm=[mt.CLIPS, mt.FRAMES],
+                asd=[mt.CLIPS, mt.FRAMES])
+
+
+def egot2g_eval_phase(card, name, batch):
+    """One EgoT2-g task's model answers the combined batch through the
+    task's eval step (each task's batch encoded once, then its greedy
+    step and its teacher-forced loss): a warm-up and ASD_REPEATS timed
+    steps with every launch count set to 0 just before and read just
+    after, finite outputs, and clip 0 of each task against ``predict`` of
+    the port's CPU model with the same weights. Returns (task, state,
+    launch counts)."""
+    from egot2x_torch.tasks import multitask_hhi
+    from egot2x_torch.tools import profile_egot2g as mt
+
+    cfg = mt.config()
+    task = getattr(multitask_hhi, name)(cfg)
+    state = task.build_state(SEED)
+    out, ms, peak, counts, forwards = _serve_requests(
+        lambda: task.eval_step(state, batch))
+    rgb, talknet = MT_STEMS[name]
+    expect = _expected(forwards, stem_pool_2d=rgb, stem_pool_3d=talknet)
+    phase("egot2g", card=card, task=name, model=MT_TASKS[name],
+          request="eval", hidden=cfg.hidden_dim, layers=cfg.num_layers,
+          heads=cfg.num_heads, **_mt_shapes(mt), rgb=mt.IMG,
+          ms_per_request=ms,
+          batches_per_s=1e3 / ms, peak_mem_gib=peak, launches=counts,
+          expected_launches=expect)
+    if counts != expect:
+        fail(f"egot2g {name}: launches {counts}, expected {expect}")
+    rows = {"lam": mt.LAM_CLIPS, "ttm": mt.CLIPS, "asd": mt.CLIPS * mt.FRAMES}
+    for t, n in rows.items():
+        _check_finite(f"egot2g {name}", {t: out[t]}, (n, 2))
+        _check_finite(f"egot2g {name}", {f"{t}_loss": out[f"{t}_loss"]}, ())
+    cpu = getattr(multitask_hhi, name)(task.cfg, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               state.model.state_dict().items()})
+    want = {}
+    for t, b in batch.items():
+        clip0 = {k: v[:1].cpu() for k, v in b.items()}
+        want[t] = cpu.model.predict(*cpu._task_args(t, clip0), t)
+    errs = _check_close(f"egot2g {name}, clip 0 card vs CPU",
+                        {t: out[t][:len(w)] for t, w in want.items()}, want)
+    phase("egot2g_check", task=name, vs="cpu predict, clip 0",
+          max_abs_err=errs, tol=LOGIT_TOL)
+    return task, state, counts
+
+
+def egot2g_long_phase(card, model):
+    """ASD ``predict`` of the translation model on one 700-frame track:
+    a warm-up and ASD_REPEATS timed requests, three flash launches a
+    request at (4, 2100, 64) (the prompt encoder's layers), none in TalkNet
+    or the decoder; the answer against the same model with its attention
+    computed by the plain version. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from egot2x_torch.nn.resnet2d import normalize_u8_frames
+    from egot2x_torch.ops import flash
+    from egot2x_torch.tools import profile_egot2g as mt
+
+    n, layers = mt.LONG_TRACK, mt.config().num_layers
+    batch = _asd_batch(1, n, SEED + 11)
+    rng = np.random.default_rng(SEED + 12)
+    rgb = rng.integers(0, 256, (1, n, mt.IMG, mt.IMG, 3), dtype=np.uint8)
+    args = (normalize_u8_frames(torch.from_numpy(rgb).cuda()),
+            batch["faces"], torch.zeros(1, n * 16000 // 30).cuda(),
+            batch["mfcc"])
+    predict = lambda: model.predict(*args, "asd")
+    out, ms, peak, counts, forwards = _serve_requests(predict)
+    expect = _expected(forwards, stem_pool_2d=2, stem_pool_3d=1,
+                       flash_attention=layers)
+    shapes, kernel = [], flash.flash_attention
+
+    def record(q, k, v):   # the kernel counts on the module's name: here
+        shapes.append([q.shape[0] * q.shape[2], q.shape[1], q.shape[3]])
+        return kernel(q, k, v)
+
+    record.launches = 0
+    flash.flash_attention = record
+    try:
+        predict()
+    finally:
+        flash.flash_attention = kernel
+    phase("egot2g", card=card, task="Unified3TaskTranslation",
+          model="TaskTranslationPromptTransformer", request="asd predict",
+          tracks=1, frames=n, rgb=mt.IMG, ms_per_request=ms,
+          frames_per_s=n / ms * 1e3, peak_mem_gib=peak,
+          flash_shapes=shapes, launches=counts, expected_launches=expect)
+    if counts != expect or shapes != [[4, 3 * n, 64]] * layers:
+        fail(f"egot2g long track: launches {counts}, expected {expect}; "
+             f"flash shapes {shapes}")
+    _check_finite("egot2g long track", {"asd": out}, (n, 2))
+    with _plain_attention():
+        want = predict()
+    errs = _check_close("egot2g long track, flash vs plain attention",
+                        {"asd": out}, {"asd": want})
+    phase("egot2g_check", request="long track",
+          vs="plain attention on the card", max_abs_err=errs, tol=LOGIT_TOL)
+    return counts
+
+
+def egot2g_train_phase(card, task, state):
+    """Frozen Stage-II training of ``Unified3TaskTranslation`` (f32, TF32
+    off, dropout 0.1): a warm-up and TRAIN_STEPS timed steps on combined
+    batches with every launch count set to 0 just before and read just
+    after, finite losses, every core and projection leaf moved, the
+    backbones' weights and statistics bit for bit; then one step with
+    dropout off on TRAIN_CHECK_CLIPS clips of each task against the same
+    step on the CPU. Returns the launch counts."""
+    import torch
+
+    from egot2x_torch.tools import profile_egot2g as mt
+    from egot2x_torch.translate.egot2g import FROZEN_KEYS
+
+    model = state.model
+    frozen = {k: v.clone() for k, v in model.state_dict().items()
+              if k.split(".", 1)[0] in FROZEN_KEYS}
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if p.requires_grad}
+    batches = mt.combined_batches(TRAIN_STEPS + 1, SEED + 13)
+    generator = torch.Generator("cuda").manual_seed(SEED + 7)
+    state, losses, seconds, peak_gib, counts = _train_steps(
+        task, state, batches, generator)
+    rgb, talknet = MT_STEMS["Unified3TaskTranslation"]
+    expect = _expected(TRAIN_STEPS + 1, stem_pool_2d=rgb,
+                       stem_pool_3d=talknet)
+    moved, dead, changed = _check_trained("egot2g_train", model, before,
+                                          frozen, losses, counts, expect)
+    phase("egot2g_train", card=card, task="Unified3TaskTranslation",
+          model="TaskTranslationPromptTransformer", dtype="float32",
+          hidden=task.cfg.hidden_dim, layers=task.cfg.num_layers,
+          heads=task.cfg.num_heads, **_mt_shapes(mt), steps=TRAIN_STEPS,
+          batches_per_s=TRAIN_STEPS / seconds,
+          ms_per_step=seconds / TRAIN_STEPS * 1e3, peak_mem_gib=peak_gib,
+          losses=losses, leaves_moved=f"{moved} of {len(before)}",
+          leaves_with_zero_gradient=dead, frozen_entries=len(frozen),
+          frozen_entries_changed=changed, launches=counts,
+          expected_launches=expect)
+    loss_err, cosine, leaf, card_loss, cpu_loss = _train_check(
+        task, state, batches[0])
+    phase("egot2g_train_check", vs="cpu", clips=TRAIN_CHECK_CLIPS,
+          dropout=0.0, loss_card=card_loss, loss_cpu=cpu_loss,
+          loss_rel_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL[False],
+          min_grad_cosine=cosine, min_grad_cosine_leaf=leaf,
+          cosine_bar=TRAIN_GRAD_COSINE[False])
+    if not loss_err <= TRAIN_LOSS_RTOL[False]:
+        fail(f"egot2g_train: card loss {card_loss} vs CPU {cpu_loss}")
+    if not cosine >= TRAIN_GRAD_COSINE[False]:
+        fail(f"egot2g_train: gradient of {leaf} at cosine {cosine} with "
+             "the CPU's")
+    return counts
+
+
+def egot2g_fit_phase(card, task, state, batch):
+    """``Trainer.fit`` of the task with ``fast_dev_run`` on a
+    ``CombinedLoader`` of ``batch`` from ``state``: one train step and one
+    validation batch, with every launch count set to 0 just before and
+    read just after (each an encoding of every task's batch); finite
+    metrics in range. Returns the launch counts."""
+    import tempfile
+
+    from egot2x_torch.data.combined import CombinedLoader
+    from egot2x_torch.train.trainer import Trainer
+
+    loader = CombinedLoader({t: [b] for t, b in batch.items()})
+    for fn in _counters().values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as root:
+        trainer = Trainer(task, fast_dev_run=True, default_root_dir=root)
+        state = trainer.fit(loader, loader, state=state)
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    rgb, talknet = MT_STEMS[type(task).__name__]
+    expect = _expected(2, stem_pool_2d=rgb, stem_pool_3d=talknet)
+    (metrics,) = trainer.metrics_history
+    phase("egot2g_fit", card=card, task=type(task).__name__,
+          trainer="fast_dev_run", loader="CombinedLoader", metrics=metrics,
+          launches=counts, expected_launches=expect)
+    if counts != expect:
+        fail(f"egot2g_fit: launches {counts}, expected {expect}")
+    if not (math.isfinite(metrics["val_loss"])
+            and all(0.0 <= v <= 1.0 for k, v in metrics.items()
+                    if k.startswith("val_") and k != "val_loss")):
+        fail(f"egot2g_fit: metrics {metrics}")
+    return counts
+
+
+def egot2g_phase(card):
+    """EgoT2-g HHI at run_multitask's widths: both tasks' eval on one
+    combined batch, the long ASD track, frozen training, the Trainer.
+    Returns the launch counts of each path."""
+    from egot2x_torch.tools import profile_egot2g as mt
+
+    batch = mt.combined_batches(1, SEED + 10)[0]
+    counts = {}
+    for name in MT_TASKS:
+        task, state, counts[f"eval_{name}"] = egot2g_eval_phase(card, name,
+                                                                batch)
+        if name == "Unified3TaskTranslation":
+            counts["long_track"] = egot2g_long_phase(card, state.model)
+            counts["train"] = egot2g_train_phase(card, task, state)
+            counts["fit"] = egot2g_fit_phase(card, task, state, batch)
+        del task, state
+    return counts
+
+
 def _line_row(name, row, counts, replaces, route="cuda",
               source="egot2x_torch/csrc/stem_pool.cu"):
     return dict(name=name, route=route, source=source, replaces=replaces,
@@ -2067,8 +2315,9 @@ def main():
     val_counts = {}
     for name in ("stage1_lam", "stage1_ttm", "stage1_asd"):
         train_counts[name], val_counts[name] = stage1_phase(card, name)
-    float_stem, int8_stem = ("egot2x/ops/pallas_stem.py:232",
-                             "egot2x/ops/pallas_stem.py:351")
+    mt_counts = egot2g_phase(card)
+    float_stem, int8_stem = ("egot2x/ops/pallas_stem.py:251",
+                             "egot2x/ops/pallas_stem.py:373")
     # each kernel at its main path's input type: f32 (float slice), bf16
     # (int8 slice)
     line = [_line_row(f"stem_pool_{k}", kernels[f"stem_pool_{k}", "float32"],
@@ -2098,6 +2347,8 @@ def main():
                                  for path, counts in train_counts.items()}
         row["validation_launches"] = {path: counts[row["name"]]
                                       for path, counts in val_counts.items()}
+        row["egot2g_launches"] = {path: counts[row["name"]]
+                                  for path, counts in mt_counts.items()}
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

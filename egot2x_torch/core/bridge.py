@@ -18,7 +18,12 @@ The layouts differ as follows:
   * the BiLSTM's ``w_ih`` (D, 4H) and ``w_hh`` (H, 4H) of each layer and
     direction are torch LSTM's ``weight_ih_l{k}[_reverse]`` (4H, D) and
     ``weight_hh_l{k}[_reverse]`` (4H, H), biases as they are;
-  * ResNetSE's attention Dense layers are 1x1 Conv1d here, (out, in, 1).
+  * ResNetSE's attention Dense layers are 1x1 Conv1d here, (out, in, 1);
+  * the EgoT2-g prompt models hold their prompt core (``ln``,
+    ``task_embed``, ``embedding``, ``fc``, the encoder and the decoder)
+    at their top, as the reference does, and the JAX package under
+    ``core/``; flax's ``Embed`` table is torch's ``Embedding`` weight as
+    it is.
 
 The map is written module by module: each entry pairs a port module path
 with a JAX module path, and the module's type says which leaves it has.
@@ -39,7 +44,8 @@ from torch import nn
 from egot2x_torch.models.asd import TalkNetBackbone, TalkNetWithHeads
 from egot2x_torch.models.lam import BaselineLSTM
 from egot2x_torch.models.ttm import TTMBaselineLSTM
-from egot2x_torch.nn.common import MultiHeadAttention, TransformerEncoder
+from egot2x_torch.nn.common import (MultiHeadAttention, TransformerDecoder,
+                                    TransformerEncoder)
 from egot2x_torch.nn.lstm import BiLSTM
 from egot2x_torch.nn.quant import SCALE_BUFFERS
 from egot2x_torch.nn.resnet2d import BasicBlock2D, ResNet2D
@@ -48,6 +54,7 @@ from egot2x_torch.nn.talknet import (AVSRResNetLayer, CrossAttentionLayer,
                                      GlobalLayerNorm, TalkNetModel,
                                      VisualFrontend)
 from egot2x_torch.tasks.asd_2loader import _TranslatorWithHead
+from egot2x_torch.translate.egot2g import STREAM_IDS, _HHIPromptBase
 from egot2x_torch.translate.egot2s_hhi import (_FrameBaseline,
                                                _MFTransformerCore)
 
@@ -103,6 +110,8 @@ def _leaf_rules(module: nn.Module, t: str, j: str) -> List[Rule]:
     if isinstance(module, nn.LayerNorm):
         return [(t + "weight", [prm("scale")], "id"),
                 (t + "bias", [prm("bias")], "id")]
+    if isinstance(module, nn.Embedding):
+        return [(t + "weight", [prm("embedding")], "id")]
     if isinstance(module, MultiHeadAttention):
         qkv = ("q_proj", "k_proj", "v_proj")
         return [(t + "in_proj_weight", [prm(f"{n}/kernel") for n in qkv],
@@ -201,6 +210,13 @@ def _encoder(t: str, j: str, num_layers: int) -> Iterator[Tuple[str, str]]:
         yield from _attention_layer(f"{t}layers.{i}", f"{j}/layers_{i}")
 
 
+def _decoder(t: str, j: str, num_layers: int) -> Iterator[Tuple[str, str]]:
+    for i in range(num_layers):
+        for leaf in ("self_attn", "multihead_attn", "linear1", "linear2",
+                     "norm1", "norm2", "norm3"):
+            yield f"{t}layers.{i}.{leaf}", f"{j}/layers_{i}/{leaf}"
+
+
 def _talknet(t: str, j: str) -> Iterator[Tuple[str, str]]:
     vf, jvf = f"{t}visualFrontend", f"{j}/visual_frontend"
     yield vf, jvf
@@ -258,6 +274,18 @@ def _translator(model: _MFTransformerCore) -> Iterator[Tuple[str, str]]:
     yield "linear_head.1", "head_fc"
 
 
+def _prompt(model: _HHIPromptBase) -> Iterator[Tuple[str, str]]:
+    yield from _trunks(model)
+    for s in STREAM_IDS:
+        yield f"proj_{s}", f"proj_{s}"
+    for leaf in ("ln", "embedding", "fc"):
+        yield leaf, f"core/{leaf}"
+    yield from _encoder("transformer_encoder.", "core/transformer_encoder",
+                        len(model.transformer_encoder.layers))
+    yield from _decoder("transformer_decoder.", "core/transformer_decoder",
+                        len(model.transformer_decoder.layers))
+
+
 def _nested(module: nn.Module, t: str, j: str) -> List[Rule]:
     """``bridge_rules(module)`` for a submodule at port path ``t`` and JAX
     path ``j``."""
@@ -275,9 +303,11 @@ def bridge_rules(model: nn.Module) -> List[Rule]:
     if isinstance(model, _TranslatorWithHead):
         return (_nested(model.translator, "translator", "translator")
                 + _leaf_rules(model.lossAV.FC, "lossAV.FC", "loss_av/fc"))
+    task_embed = ("task_embed", [("params", ("core", "task_embed"))], "id")
     if isinstance(model, _MFTransformerCore):
-        pairs = _translator(model)
-        extra = [("task_embed", [("params", ("core", "task_embed"))], "id")]
+        pairs, extra = _translator(model), [task_embed]
+    elif isinstance(model, _HHIPromptBase):
+        pairs, extra = _prompt(model), [task_embed]
     elif isinstance(model, BaselineLSTM):
         pairs, extra = _stage1_head("base_model"), []
     elif isinstance(model, TTMBaselineLSTM):
@@ -299,6 +329,8 @@ def bridge_rules(model: nn.Module) -> List[Rule]:
         pairs, extra = _talknet("", ""), []
     elif isinstance(model, TransformerEncoder):
         pairs, extra = _encoder("", "", len(model.layers)), []
+    elif isinstance(model, TransformerDecoder):
+        pairs, extra = _decoder("", "", len(model.layers)), []
     elif isinstance(model, CrossAttentionLayer):
         pairs = [(leaf, leaf) for leaf in ("self_attn", "linear1", "linear2",
                                            "norm1", "norm2")]
@@ -397,6 +429,8 @@ def random_jax_variables(model: nn.Module, seed: int) -> Dict[str, dict]:
             v = np.full(shape, 0.25)
         elif leaf == "task_embed":
             v = rng.standard_normal(shape)
+        elif leaf == "embedding":   # a (vocab, D) table: rows of norm ~1
+            v = rng.standard_normal(shape) / np.sqrt(shape[-1])
         else:  # bias, beta, mean
             v = rng.standard_normal(shape) * 0.05
         node = out.setdefault(path[0], {})

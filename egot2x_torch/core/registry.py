@@ -56,7 +56,8 @@ def build_model(name: str, device=None, **kwargs) -> torch.nn.Module:
     weights in ``torch.channels_last`` (the layout the stem kernel's NHWC
     output feeds). ``kwargs`` go to the model: widths, ``dtype`` (the
     compute dtype; parameters stay f32) and, for the 3-task translator,
-    ``quant`` and ``fuse_stems``. Weights are the module defaults: load
+    ``quant`` and ``fuse_stems``; the EgoT2-g prompt models take
+    ``vocab_size``. Weights are the module defaults: load
     real ones with :func:`egot2x_torch.core.bridge.load_jax_variables` or
     ``load_state_dict``; a ``quant`` model then needs
     :func:`egot2x_torch.nn.quant.calibrate` (or calibrated scales in what
@@ -64,6 +65,7 @@ def build_model(name: str, device=None, **kwargs) -> torch.nn.Module:
     import egot2x_torch.models.asd  # noqa: F401  (registers)
     import egot2x_torch.models.lam  # noqa: F401  (registers)
     import egot2x_torch.models.ttm  # noqa: F401  (registers)
+    import egot2x_torch.translate.egot2g  # noqa: F401  (registers)
     import egot2x_torch.translate.egot2s_hhi  # noqa: F401  (registers)
 
     return place(MODEL_REGISTRY.get(name)(**kwargs), device)

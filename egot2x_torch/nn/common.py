@@ -1,17 +1,19 @@
-"""Transformer building blocks: sinusoidal PE, MHA, the post-LN encoder.
+"""Transformer building blocks: sinusoidal PE, MHA, the post-LN encoder
+and the post-LN decoder.
 
 Counterpart of ``egot2x/nn/common.py``. Modules are batch-major
 (B, T, D). Parameter names follow ``torch.nn.MultiheadAttention`` /
-``TransformerEncoderLayer`` (packed ``in_proj_weight``), so reference
-checkpoints load as they are; the JAX package's separate q/k/v Dense
-layers are concatenated by the weight bridge (``egot2x_torch.core.bridge``).
+``TransformerEncoderLayer`` / ``TransformerDecoderLayer`` (packed
+``in_proj_weight``), so reference checkpoints load as they are; the JAX
+package's separate q/k/v Dense layers are concatenated by the weight
+bridge (``egot2x_torch.core.bridge``).
 
 LayerNorm epsilon is 1e-6 everywhere, the Flax default the JAX package
 runs with, not torch's 1e-5. Layers compute in the dtype of their input
 (``egot2x_torch.nn.layers``).
 
 Dropout sits where the JAX package's does: after the PE, on the attention
-probabilities, after attention and twice in the FFN. It acts in train
+probabilities, after each attention and twice in the FFN. It acts in train
 mode only, so eval mode is the inference path, and its masks come from
 the ``torch.Generator`` that :func:`set_dropout_generator` hands every
 :class:`Dropout` of a model, never from the global RNG.
@@ -26,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from egot2x_torch.nn.layers import LayerNorm, Linear
-from egot2x_torch.ops.attention import dot_product_attention
+from egot2x_torch.ops.attention import attention_logits, dot_product_attention
 
 LN_EPS = 1e-6
 
@@ -109,8 +111,13 @@ class MultiHeadAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
         self.dropout = Dropout(dropout)
 
-    def forward(self, query, key, value):
-        """query (B, T, D), key and value (B, S, D) -> (B, T, D)."""
+    def forward(self, query, key, value, mask=None, is_causal=False,
+                return_weights=False):
+        """query (B, T, D), key and value (B, S, D) -> (B, T, D); ``mask``
+        (True to keep, broadcast to (B, 1|H, T, S)) and ``is_causal`` as
+        in ``ops/attention.py``. ``return_weights`` also returns the
+        attention probabilities averaged over the heads, (B, T, S), without
+        dropout."""
         w_q, w_k, w_v = self.in_proj_weight.to(query.dtype).chunk(3)
         b_q, b_k, b_v = self.in_proj_bias.to(query.dtype).chunk(3)
         b, t, d = query.shape
@@ -120,8 +127,12 @@ class MultiHeadAttention(nn.Module):
         v = heads(F.linear(value, w_v, b_v))
         drop = self.dropout
         probs_dropout = drop if drop.training and drop.p > 0.0 else None
-        return self.out_proj(
-            dot_product_attention(q, k, v, probs_dropout).reshape(b, t, d))
+        out = self.out_proj(dot_product_attention(
+            q, k, v, mask, is_causal, probs_dropout).reshape(b, t, d))
+        if not return_weights:
+            return out
+        logits = attention_logits(q, k, mask, is_causal)
+        return out, torch.softmax(logits, dim=-1).mean(dim=1)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -140,8 +151,8 @@ class TransformerEncoderLayer(nn.Module):
         self.dropout, self.dropout1, self.dropout2 = (
             Dropout(dropout) for _ in range(3))
 
-    def forward(self, x):
-        x = self.norm1(x + self.dropout1(self.self_attn(x, x, x)))
+    def forward(self, x, mask=None):
+        x = self.norm1(x + self.dropout1(self.self_attn(x, x, x, mask)))
         h = self.dropout(torch.relu(self.linear1(x)))
         return self.norm2(x + self.dropout2(self.linear2(h)))
 
@@ -157,7 +168,65 @@ class TransformerEncoder(nn.Module):
                                     dropout)
             for _ in range(num_layers))
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, mask)
         return x
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Post-LN decoder layer (torch ``nn.TransformerDecoderLayer`` default
+    layout, the reference's ``CustomDecoderLayer``):
+    x = norm1(x + dropout1(self_attn(x), causal by default));
+    x = norm2(x + dropout2(multihead_attn(x, memory)));
+    x = norm3(x + dropout3(linear2(dropout(relu(linear1(x))))))."""
+
+    def __init__(self, d_model: int, num_heads: int,
+                 dim_feedforward: int = 2048, dropout: float = 0.1):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout)
+        self.multihead_attn = MultiHeadAttention(d_model, num_heads, dropout)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
+        self.norm1, self.norm2, self.norm3 = (
+            layer_norm(d_model) for _ in range(3))
+        self.dropout, self.dropout1, self.dropout2, self.dropout3 = (
+            Dropout(dropout) for _ in range(4))
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                is_causal=True, return_weights=False):
+        """tgt (B, T, D), memory (B, S, D) -> (B, T, D), and with
+        ``return_weights`` the cross-attention's head-mean probabilities
+        (B, T, S)."""
+        sa = self.self_attn(tgt, tgt, tgt, tgt_mask, is_causal)
+        x = self.norm1(tgt + self.dropout1(sa))
+        ca = self.multihead_attn(x, memory, memory, memory_mask,
+                                 return_weights=return_weights)
+        ca, weights = ca if return_weights else (ca, None)
+        x = self.norm2(x + self.dropout2(ca))
+        h = self.dropout(torch.relu(self.linear1(x)))
+        x = self.norm3(x + self.dropout3(self.linear2(h)))
+        return (x, weights) if return_weights else x
+
+
+class TransformerDecoder(nn.Module):
+    """Stack of post-LN decoder layers (``layers.{i}``); with
+    ``return_weights`` the last layer's cross-attention weights too."""
+
+    def __init__(self, num_layers: int, d_model: int, num_heads: int,
+                 dim_feedforward: int = 2048, dropout: float = 0.1):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerDecoderLayer(d_model, num_heads, dim_feedforward,
+                                    dropout)
+            for _ in range(num_layers))
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                is_causal=True, return_weights=False):
+        x, weights = tgt, None
+        for layer in self.layers:
+            x = layer(x, memory, tgt_mask, memory_mask, is_causal,
+                      return_weights)
+            if return_weights:
+                x, weights = x
+        return (x, weights) if return_weights else x

@@ -20,10 +20,12 @@ Counterpart of ``egot2x/train/trainer.py`` on one card:
 
 Loaders are any iterables of dict batches (numpy arrays or tensors;
 other values, such as segment ids, stay on the host for the task's
-``accumulate``); the port's data path comes later (ROADMAP.md §1 item 3).
-The Trainer runs on the card unless ``device`` says otherwise, and raises
-when the task's model is elsewhere. Data-parallel training (the JAX
-package's mesh) is not ported yet (ROADMAP.md §1 item 2).
+``accumulate``), or of ``{task: batch}`` dicts of them, as
+``data/combined.py::CombinedLoader`` yields for the multi-task tasks;
+the port's data path comes later (ROADMAP.md §1 item 3). The Trainer runs
+on the card unless ``device`` says otherwise, and raises when the task's
+model is elsewhere. Data-parallel training (the JAX package's mesh) is
+not ported yet (ROADMAP.md §1 item 2).
 """
 
 from __future__ import annotations
@@ -98,10 +100,14 @@ class Trainer:
         self.metrics_history = []
 
     def _device_batch(self, batch):
-        """Numeric arrays and tensors of ``batch`` on the device; other
+        """Numeric arrays and tensors of ``batch`` on the device, and those
+        of each nested batch (a multi-task step's ``{task: batch}``); other
         values dropped."""
         out = {}
         for k, v in batch.items():
+            if isinstance(v, dict):
+                out[k] = self._device_batch(v)
+                continue
             if isinstance(v, np.ndarray) and v.dtype.kind in "biuf":
                 v = torch.from_numpy(v)
             if isinstance(v, torch.Tensor):

@@ -11,7 +11,9 @@ of the plain version, the int8 stems' refusal of inputs that need grad,
 and ``nofreeze`` / ``remat`` train steps on the card against the CPU.
 Stage I: stems in training mode launch no kernel (batch statistics, as
 library ops) and in eval mode one; each Stage-I task's step on the card
-against the CPU.
+against the CPU. EgoT2-g: masked and causal attention never launch flash,
+the prompt encoder on a 700-frame ASD track's 2100 tokens does (once a
+layer), and the causal decoder on the card against the CPU.
 
 Marked ``cuda``; each test skips when the process sees no CUDA card. This
 file imports neither JAX nor the JAX package, so on a machine without JAX
@@ -925,3 +927,77 @@ def test_stage1_step_on_card_matches_cpu(cuda, name):
     assert sorted(grads[0]) == sorted(grads[1])
     rel, cos = _leaf_gaps(grads[0], grads[1])
     assert rel <= 5e-2 and cos >= 0.999, (rel, cos)
+
+
+def test_masked_and_causal_attention_never_launch_flash(cuda):
+    """At 2048 queries and keys, attention with a mask or causal takes the
+    plain path on the card (no launch), as in the JAX package, and agrees
+    with the CPU; a fully masked row comes out as zeros."""
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((1, 2048, 4, 16))
+                         .astype(np.float32))
+    mask = torch.from_numpy(rng.uniform(size=(1, 1, 2048, 2048)) > 0.2)
+    mask[..., 0] = True
+    mask[0, 0, 5] = False
+    before = flash.flash_attention.launches
+    for kw in (dict(mask=mask), dict(is_causal=True),
+               dict(mask=mask, is_causal=True)):
+        got = attention.dot_product_attention(
+            *(v.to(cuda) for v in (x, x, x)),
+            **{k: v.to(cuda) if isinstance(v, torch.Tensor) else v
+               for k, v in kw.items()})
+        torch.cuda.synchronize()
+        want = attention.dot_product_attention(x, x, x, **kw)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+        if "mask" in kw:
+            assert not got[0, 5].any()
+    assert flash.flash_attention.launches == before
+
+
+def test_prompt_encoder_at_2100_tokens_launches_flash(cuda):
+    """The EgoT2-g prompt encoder at run_multitask's widths (D 256, 4 heads,
+    3 layers) on the 3 x 700 tokens of one ASD track launches the kernel
+    once a layer, at (4, 2100, 64), and agrees with the CPU's plain
+    attention."""
+    from egot2x_torch.core import bridge
+    from egot2x_torch.nn.common import TransformerEncoder
+
+    cpu = TransformerEncoder(3, 256, 4).eval()
+    bridge.load_jax_variables(cpu, bridge.random_jax_variables(cpu, seed=4))
+    gpu = TransformerEncoder(3, 256, 4).to(cuda).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.standard_normal((1, 2100, 256))
+                         .astype(np.float32))
+    before = flash.flash_attention.launches
+    with torch.no_grad():
+        got = gpu(x.to(cuda))
+        torch.cuda.synchronize()
+        want = cpu(x)
+    assert flash.flash_attention.launches == before + 3
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+def test_decoder_on_card_matches_cpu(cuda):
+    """The causal post-LN decoder (D 256, 4 heads, 3 layers) on 2 target
+    tokens over the 45 memory tokens of a 15-frame request, with the
+    cross-attention weights, on the card and on the CPU: no flash launch,
+    rtol = atol = 1e-4."""
+    from egot2x_torch.core import bridge
+    from egot2x_torch.nn.common import TransformerDecoder
+
+    cpu = TransformerDecoder(3, 256, 4).eval()
+    bridge.load_jax_variables(cpu, bridge.random_jax_variables(cpu, seed=5))
+    gpu = TransformerDecoder(3, 256, 4).to(cuda).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(23)
+    tgt, memory = (torch.from_numpy(rng.standard_normal(shape)
+                                    .astype(np.float32))
+                   for shape in ((30, 2, 256), (30, 45, 256)))
+    before = flash.flash_attention.launches
+    with torch.no_grad():
+        got, got_w = gpu(tgt.to(cuda), memory.to(cuda), return_weights=True)
+        want, want_w = cpu(tgt, memory, return_weights=True)
+    assert flash.flash_attention.launches == before
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_w.cpu(), want_w, rtol=1e-4, atol=1e-4)

@@ -170,7 +170,11 @@ def test_port_imports_neither_jax_nor_egot2x():
             "egot2x_torch/nn/lstm.py", "egot2x_torch/nn/resnet_se.py",
             "egot2x_torch/audio/melspec.py", "egot2x_torch/models/lam.py",
             "egot2x_torch/models/ttm.py", "egot2x_torch/tasks/lam.py",
-            "egot2x_torch/tasks/ttm.py", "egot2x_torch/tasks/base.py"} <= names
+            "egot2x_torch/tasks/ttm.py", "egot2x_torch/tasks/base.py",
+            "egot2x_torch/translate/egot2g.py",
+            "egot2x_torch/translate/vocab.py",
+            "egot2x_torch/data/combined.py",
+            "egot2x_torch/tasks/multitask_hhi.py"} <= names
     bad = [(f.name, m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "egot2x")]
     assert bad == []
