@@ -139,10 +139,38 @@ Phases, each printing one line or more:
               gradient cosine >= 0.99999); ``Trainer.fit`` with
               ``fast_dev_run`` on a ``CombinedLoader`` (one step and one
               validation batch, their launch counts).
+then the HHI data path (the data plane's nvJPEG, ``jpeg.cu``, is built
+with the kernels, and its version printed after the build):
+ 18. data    nvJPEG's decode of the committed cv2-written reference JPEGs
+              (egot2x_torch/tools/jpeg_refs, made by tools/make_jpeg_refs.py)
+              against cv2's decode: max |diff| and the share of pixels that
+              differ printed; the 4:4:4 file within 3 levels, the 4:2:0
+              files' luma within a mean of 1 (chroma upsampling is the
+              decoder's choice), every file's chroma averaged over 2x2
+              blocks within a mean of 3 (a Cb/Cr swap must fail it); an
+              nvJPEG encode-decode round trip; the
+              ``crop_resize`` kernel against its plain version bit for bit
+              on one 150-frame item of 512^2 frames (256^2 face boxes ->
+              224^2 RGB; grey squares past the frame's edge, flipped),
+              its time (a CUDA graph of launches) beside the wrapper's, the
+              plain version's, ``F.interpolate``'s on the stacked crops and
+              the byte bound; decode and loader rates on 64 such frames;
+ 19. cli     ``run_ttm.main`` with ``--two_loader --model
+              TaskFusionMFTransformer3Task`` at the CLI's widths (hidden 256,
+              4 heads, 3 layers, dropout 0.1, lr 5e-4, 400-frame batches,
+              10 loader threads, 224^2) for one epoch on a TTM fixture of
+              512^2 frames written by nvJPEG's encoder: every batch from the
+              card loader (CUDA tensors before the Trainer moves anything),
+              2 + 1 stems a step and a forward, 2 crop_resize launches an
+              item and one decode a frame, all counted from 0; ms a step,
+              the loader wait, peak memory, the validation metrics; then
+              ``run_lam``, ``run_asd`` (plain and ``--two_loader``) and
+              ``run_multitask`` (both tasks) with ``--synthetic
+              --fast_dev_run`` on the card.
 
 Then one JSON line of every kernel (with its launches on each training
-path, each Stage-I validation forward and each EgoT2-g path), and as the
-last line
+path, each Stage-I validation forward, each EgoT2-g path and the CLI's
+epoch), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Float32 runs in full f32 throughout: TF32 is off for cuDNN and for
 matmuls, so the card and the CPU compute the same function.
@@ -157,6 +185,7 @@ rate as ``bound_cuda_core_ms``.
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -188,7 +217,8 @@ INT8_LOGIT_TOL = 5e-2
 INT8_VS_FLOAT_COSINE = 0.99
 INT8_CARD_CPU_COSINE = 0.999
 CONVS_PER_FORWARD = 57   # 19 in each ResNet-18, 19 in the AVSR ResNet
-SOURCES = ("stem_pool", "flash_attention")   # egot2x_torch/csrc/<name>.cu
+SOURCES = ("stem_pool", "flash_attention",
+           "jpeg")   # egot2x_torch/csrc/<name>.cu
 # flash kernel shapes (name, BH, N, S, D): TalkNet's attention on one track
 # of 2048 frames (8 heads; cross A<->V d 128, self-AV d 256) and the JAX
 # oracle's odd shape (tests/test_pallas_attention.py)
@@ -286,6 +316,30 @@ MT_STEMS = {"Unified3TaskTranslation": (5, 2), "Unified3Task": (2, 1)}
 # §3 item 3 (the JAX package's full-translator int8 gate: cosine > 0.99)
 TRAIN_LOSS_RTOL = {False: 1e-4, True: 1e-2}
 TRAIN_GRAD_COSINE = {False: 0.99999, True: 0.99}
+# the data plane (data, cli): frames of 512^2 with face boxes of 256^2
+# (the TTM fixture at img_size 256), cropped and resized to 224^2; one
+# crop_resize launch of the 150-frame bucket's item; the loader rate over
+# 64 frames in items of 16
+FACE, CROP_N, RATE_FRAMES, RATE_ITEM = 256, 150, 64, 16
+FULL_CHROMA = "ref_3"   # egot2x_torch/tools/make_jpeg_refs.py's 4:4:4 file
+# nvJPEG's decode vs libjpeg's (cv2) of the same file. With full-size
+# chroma (4:4:4) the two differ only by the IDCT's rounding (IEEE 1180:
+# at most 1 a sample) carried through the YCbCr -> RGB conversion (Cb
+# weighs 1.772 in B) and its own rounding: at most 3 levels a channel.
+# With 4:2:0, JFIF leaves the chroma upsampling to the decoder, and the
+# two differ at colour edges (printed); the luma of the RGB (BT.601,
+# cv2's grey weights) takes no chroma, so the decode's luma is held at a
+# mean of 1 level. The chroma is held where the upsampling filter hardly
+# shows: Cb and Cr of the RGB averaged over each 2x2 block (one 4:2:0
+# chroma sample's footprint), within a mean of 3 levels of libjpeg's on
+# every file (measured on an H100: 0.87-1.45 at 4:2:0, 0.14 at 4:4:4;
+# the decode with Cb and Cr swapped reads 64.8-69.4, with neutral chroma
+# 43.0-45.0, so the check must also fail the swapped decode). An nvJPEG
+# encode (q95, 4:2:0) and decode of a reference: mean luma error at most
+# 2 levels (q95's quantization), block chroma at most 3 (measured
+# 1.05-1.50)
+JPEG_444_MAX, JPEG_LUMA_MEAN, JPEG_ROUND_TRIP_LUMA = 3, 1.0, 2.0
+JPEG_CHROMA_MEAN = 3.0
 
 
 def fail(msg):
@@ -375,6 +429,8 @@ def _kernel_label(mangled):
                 f"{'f32' if m.group(1) == 'f' else 'bf16'}>")
     if "stem_pool_backward_sum_kernel" in mangled:
         return "stem_pool_backward_sum_kernel"
+    if "crop_resize_kernel" in mangled:
+        return "crop_resize_kernel"
     m = re.search(r"stem_pool_tc_kernelILi(\d+)ELi\d+ELi(\d+)ELb([01])E"
                   r"(f|13__nv_bfloat16|a)Lb([01])E", mangled)
     if not m:
@@ -422,7 +478,8 @@ def build_phase():
                 f"{name}_d{d}": flash.kernel_smem_bytes(d, dtype)
                 for name, dtype in (("f32", torch.float32),
                                     ("bf16", torch.bfloat16))
-                for d in (16, 32, 40, 64, 128, 256)}}
+                for d in (16, 32, 40, 64, 128, 256)},
+            "jpeg": 0}   # crop_resize reads its taps through L1
     for b in built:
         report = _ptxas_report(b.log)
         phase("build", source=f"egot2x_torch/csrc/{b.name}.cu",
@@ -1019,9 +1076,11 @@ def _requests():
 
 def _counters():
     """Every kernel wrapper of the port, by name."""
+    from egot2x_torch.data import image
     from egot2x_torch.ops import flash, int8, stem
 
-    return {"stem_pool_2d": stem.stem_pool_2d,
+    return {"crop_resize": image.crop_resize,
+            "stem_pool_2d": stem.stem_pool_2d,
             "stem_pool_3d": stem.stem_pool_3d,
             "stem_pool_backward": stem.stem_pool_backward,
             "stem_pool_q_2d": stem.stem_pool_q_2d,
@@ -2264,6 +2323,352 @@ def egot2g_phase(card):
     return counts
 
 
+def nvjpeg_phase():
+    """nvJPEG's version through the data plane's library (``jpeg.cu``,
+    built with the kernels): the card's JPEG decoder and encoder."""
+    from egot2x_torch.data import image
+
+    version = image.nvjpeg_version()
+    phase("device", nvjpeg=version)
+    return version
+
+
+def _noise_frames(n, seed):
+    """(n, 512, 512, 3) uint8 frames drawn as the TTM fixture draws its
+    (``make_ttm_fixture`` at img_size 256: uniform noise)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 255, (n, 2 * FACE, 2 * FACE, 3), dtype=np.uint8)
+
+
+def _chroma_blocks(rgb):
+    """(h/2, w/2, 2) Cb and Cr (JFIF's BT.601) of uint8 RGB, averaged over
+    each 2x2 block: one 4:2:0 chroma sample's footprint, where decoders
+    that upsample the chroma differently agree but for colour edges."""
+    import numpy as np
+
+    h, w = rgb.shape[0] // 2 * 2, rgb.shape[1] // 2 * 2
+    r, g, b = (rgb[:h, :w, k].astype(np.float64) for k in range(3))
+    c = np.stack([128 - 0.168736 * r - 0.331264 * g + 0.5 * b,
+                  128 + 0.5 * r - 0.418688 * g - 0.081312 * b], -1)
+    return c.reshape(h // 2, 2, w // 2, 2, 2).mean((1, 3))
+
+
+def _crop_bound(frames, boxes, out):
+    """Least time of a crop_resize: the bytes of each crop that lie in its
+    frame read once (every source pixel of a down-scaled crop is a tap;
+    taps past the frame take the fill value and read nothing) and the
+    output written once, at HBM bandwidth (the integer arithmetic, ~12
+    operations an output byte, is far below the card's rate)."""
+    read = 0
+    for img, (x1, y1, x2, y2) in zip(frames, boxes):
+        h, w = img.shape[:2]
+        c = img.shape[2] if img.dim() == 3 else 1
+        cw = min(int(x2), w) - max(int(x1), 0)
+        ch = min(int(y2), h) - max(int(y1), 0)
+        read += max(cw, 0) * max(ch, 0) * c
+    nbytes = read + out.numel()
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def data_phase():
+    """The card's data plane: nvJPEG's decode of cv2-written reference
+    JPEGs against cv2's decode; an encode-decode round trip; the
+    crop_resize kernel against its plain version at the main path's
+    shapes, bit for bit, with its time, bound and F.interpolate's; the
+    decode and loader rates on 512^2 frames. Returns the kernel's row."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from egot2x_torch.data import image
+    from egot2x_torch.data.asd import square_window
+
+    dev = torch.device("cuda")
+    refs = ROOT / "egot2x_torch" / "tools" / "jpeg_refs"
+    decoded = np.load(refs / "decoded.npz")
+    luma = lambda x: (x.astype(np.int64) @ np.int64(image.GREY)
+                      + (1 << 13)) >> 14
+    for name in sorted(decoded.files):
+        want = decoded[name]
+        got = image.decode_jpeg((refs / f"{name}.jpg").read_bytes(), dev)
+        got = got.cpu().numpy()
+        if got.shape != want.shape:
+            fail(f"nvJPEG decoded {name} as {got.shape}, not {want.shape}")
+        diff = np.abs(got.astype(np.int16) - want)
+        dluma = np.abs(luma(got) - luma(want))
+        dchroma = np.abs(_chroma_blocks(got) - _chroma_blocks(want))
+        swapped = float(np.abs(_chroma_blocks(got)[..., ::-1]
+                               - _chroma_blocks(want)).mean())
+        full = name == FULL_CHROMA
+        phase("data", check="nvjpeg_vs_libjpeg", ref=name,
+              chroma="4:4:4" if full else "4:2:0", shape=list(want.shape),
+              max_abs_diff=int(diff.max()), mean_abs_diff=float(diff.mean()),
+              share_differ=float((diff > 0).mean()),
+              luma_max_abs_diff=int(dluma.max()),
+              luma_mean_abs_diff=float(dluma.mean()),
+              chroma_2x2_mean_abs_diff=float(dchroma.mean()),
+              chroma_2x2_max_abs_diff=float(dchroma.max()),
+              chroma_swapped_2x2_mean_abs_diff=swapped,
+              bar=(f"max <= {JPEG_444_MAX}" if full
+                   else f"luma mean <= {JPEG_LUMA_MEAN}")
+              + f", chroma 2x2 mean <= {JPEG_CHROMA_MEAN}")
+        if (diff.max() > JPEG_444_MAX) if full else (
+                dluma.mean() > JPEG_LUMA_MEAN):
+            fail(f"nvJPEG's decode of {name} is not libjpeg's image")
+        if dchroma.mean() > JPEG_CHROMA_MEAN:
+            fail(f"nvJPEG's chroma of {name} is not libjpeg's")
+        if swapped <= JPEG_CHROMA_MEAN:
+            fail(f"the chroma check cannot tell {name}'s Cb from its Cr")
+        again = image.decode_jpeg(image.encode_jpeg(
+            torch.from_numpy(want).to(dev)), dev).cpu().numpy()
+        gap = float(np.abs(luma(again) - luma(want)).mean())
+        chroma_gap = float(np.abs(_chroma_blocks(again)
+                                  - _chroma_blocks(want)).mean())
+        phase("data", check="nvjpeg_encode_decode", ref=name,
+              luma_mean_abs_diff=gap, chroma_2x2_mean_abs_diff=chroma_gap,
+              bar=f"luma mean <= {JPEG_ROUND_TRIP_LUMA}, chroma 2x2 mean "
+                  f"<= {JPEG_CHROMA_MEAN}")
+        if gap > JPEG_ROUND_TRIP_LUMA or chroma_gap > JPEG_CHROMA_MEAN:
+            fail(f"nvJPEG's encode-decode of {name} is {gap} (luma), "
+                 f"{chroma_gap} (chroma) off")
+
+    # crop_resize at one TTM 2-loader item of the 150-frame bucket: 512^2
+    # frames, 256^2 face boxes -> 224^2 RGB, and the grey squares (fill
+    # 110, taps outside the frame) -> 224^2, flipped as ASD's augmentation
+    frames = [torch.from_numpy(f).to(dev) for f in _noise_frames(CROP_N,
+                                                                 SEED + 20)]
+    faces = np.tile(np.float32([4, 4, 4 + FACE, 4 + FACE]), (CROP_N, 1))
+    squares = np.float32([square_window(2 * FACE, 2 * FACE, 4 + FACE / 2,
+                                        4 + FACE / 2, FACE / 2)] * CROP_N)
+    cases = {"rgb": (faces, dict()),
+             "grey_square": (squares, dict(grey=True, flip=True, fill=110))}
+    row = None
+    for name, (boxes, kw) in cases.items():
+        out = image.crop_resize(frames, boxes, IMG, **kw)
+        torch.cuda.synchronize()
+        ref = image.crop_resize_plain(frames, boxes, IMG, **kw)
+        err = int((out.short() - ref.short()).abs().max())
+        # the kernel alone (a CUDA graph of launches on prepared words:
+        # the wrapper's host work, ~0.1 ms for 150 frames, would otherwise
+        # gap the card's timeline), and the wrapper as the loader calls it
+        flips = [kw.get("flip", False)] * CROP_N
+        words = torch.from_numpy(image._items(
+            frames, boxes, kw.get("grey", False), flips,
+            kw.get("fill", image.FILL_CLAMP))).to(dev)
+        r = dict(kernel="crop_resize", case=name, frames=CROP_N,
+                 frame=[2 * FACE, 2 * FACE, 3], box=boxes[0].tolist(),
+                 out_shape=list(out.shape), max_abs_err=err, tol=0,
+                 ok=err == 0, ms=graph_ms(lambda: image.launch(words, out),
+                                          FLASH_ITERS),
+                 wrapper_ms=time_ms(lambda: image.crop_resize(
+                     frames, boxes, IMG, **kw)),
+                 plain_ms=time_ms(lambda: image.crop_resize_plain(
+                     frames, boxes, IMG, **kw), iters=2))
+        r["bound_ms"], r["bound_by"], r["bytes"] = _crop_bound(frames, boxes,
+                                                               out)
+        if name == "rgb":   # one call: the crops stacked, in float32
+            crops = torch.stack([f[4:4 + FACE, 4:4 + FACE] for f in frames]
+                                ).permute(0, 3, 1, 2).float()
+            r["library_ms"] = time_ms(lambda: F.interpolate(
+                crops, size=(IMG, IMG), mode="bilinear", align_corners=False))
+            r["library"] = (f"F.interpolate bilinear, f32 ({CROP_N}, 3, "
+                            f"{FACE}, {FACE})")
+            row = r
+        phase("data", **r)
+        if err:
+            fail(f"crop_resize {name} differs from its plain version by "
+                 f"{err}")
+    del frames
+
+    # decode and loader rates on the fixture's 512^2 frames, warm reads
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for k, f in enumerate(_noise_frames(RATE_FRAMES, SEED + 21)):
+            paths.append(f"{d}/img_{k:05d}.jpg")
+            image.write_jpeg(paths[-1], f, dev)
+        mean_kb = sum(Path(p).stat().st_size for p in paths) / len(paths)
+        box = np.float32([[4, 4, 4 + FACE, 4 + FACE]] * RATE_ITEM)
+
+        def item(chunk):
+            imgs = [image.read_jpeg(p, dev) for p in chunk]
+            return image.crop_resize(imgs, box[:len(imgs)], IMG)
+
+        chunks = [paths[i:i + RATE_ITEM]
+                  for i in range(0, len(paths), RATE_ITEM)]
+        item(chunks[0])
+        torch.cuda.synchronize()
+        rates = {}
+        for name, run in (
+                ("decode_1_thread", lambda: [image.read_jpeg(p, dev)
+                                             for p in paths]),
+                ("decode_crop_1_thread", lambda: [item(c) for c in chunks]),
+                ("decode_crop_8_threads", lambda: list(ThreadPoolExecutor(
+                    8).map(item, chunks)))):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            rates[name] = len(paths) / (time.perf_counter() - t0)
+        phase("data", check="loader_rate", frames=len(paths),
+              frame=[2 * FACE, 2 * FACE, 3], mean_jpeg_kb=mean_kb / 1024,
+              out=IMG, frames_per_s=rates)
+    row.update(name="crop_resize", route="cuda",
+               source="egot2x_torch/csrc/jpeg.cu",
+               replaces=("none: no TPU kernel (the JAX package's host data "
+                         "plane, egot2x/native/dataplane.cpp:73)"),
+               dtype="uint8", design="one thread an output pixel, 4 taps "
+                                     "through L1, dataplane.cpp's integers",
+               shapes=(f"{CROP_N} frames of {2 * FACE}^2, {FACE}^2 boxes -> "
+                       f"{IMG}^2 RGB"))
+    return row
+
+
+def _cli_argv(*args):
+    return [*args, "--device", "cuda"]
+
+
+def cli_phase(card):
+    """``run_ttm --two_loader --model TaskFusionMFTransformer3Task`` at the
+    CLI's widths (hidden 256, 4 heads, 3 layers, dropout 0.1, lr 5e-4,
+    400-frame batches, 10 loader threads) for one epoch on a TTM fixture
+    of 512^2 frames written on the card by nvJPEG (face boxes 256^2,
+    resized to 224), every count set to 0 just before and read just
+    after: each train step's batch must come from the card loader (CUDA
+    tensors before the Trainer moves anything) and launch exactly 2 + 1
+    stems; then ``run_lam``, ``run_asd`` and ``run_multitask`` with
+    ``--synthetic --fast_dev_run`` on the card. Returns the main path's
+    launch counts."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from egot2x_torch.cli import run_asd, run_lam, run_multitask, run_ttm
+    from egot2x_torch.data import image, synthetic
+    from egot2x_torch.data.ttm_2task import TtmTwoTaskDataset
+    from egot2x_torch.tasks.ttm_2loader import TalkingToMe2Loader
+    from egot2x_torch.train.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    saved_tmp, cwd = tempfile.tempdir, os.getcwd()
+    step_fn, put_fn = TalkingToMe2Loader.train_step, Trainer._device_batch
+    item_fn = TtmTwoTaskDataset.get_item
+    steps, from_card, marks, items = [], [], [], []
+    try:
+        os.chdir(tmp)
+        tempfile.tempdir = tmp   # the --synthetic trees, the logs
+        t0 = time.perf_counter()
+        root = synthetic.make_ttm_fixture(os.path.join(tmp, "ttm"),
+                                          img_size=FACE, device="cuda")
+        fixture_s = time.perf_counter() - t0
+
+        def device_batch(self, batch):
+            frames = batch.get("frames")
+            from_card.append(isinstance(frames, torch.Tensor)
+                             and frames.is_cuda)
+            return put_fn(self, batch)
+
+        def train_step(self, state, batch, generator):
+            before = {k: fn.launches for k, fn in _counters().items()}
+            marks.append(time.perf_counter())
+            out = step_fn(self, state, batch, generator)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            steps.append(dict(
+                frames=list(batch["frames"].shape[:2]),
+                launches={k: fn.launches - before[k]
+                          for k, fn in _counters().items()}))
+            return out
+
+        def get_item(self, idx, n_frames):
+            items.append(n_frames)
+            return item_fn(self, idx, n_frames)
+
+        TalkingToMe2Loader.train_step = train_step
+        Trainer._device_batch = device_batch
+        TtmTwoTaskDataset.get_item = get_item
+        for fn in _counters().values():
+            fn.launches = 0
+        image.decode_jpeg.decodes = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = run_ttm.main(_cli_argv(
+            "--two_loader", "--model", "TaskFusionMFTransformer3Task",
+            "--data_root", root, "--img_size", str(IMG), "--epochs", "1",
+            "--output_dir", "chip_smoke"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in _counters().items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        TalkingToMe2Loader.train_step = step_fn
+        Trainer._device_batch = put_fn
+        TtmTwoTaskDataset.get_item = item_fn
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks[::2], marks[1::2])]
+    # from one step's end to the next one's start: the Trainer waits for
+    # the loader's next batch (and moves it)
+    wait_ms = [(a - b) * 1e3 for a, b in zip(marks[2::2], marks[1::2])]
+    timed = step_ms[1:]   # the first step builds cuDNN's plans
+    host = sum(wait_ms) / (sum(wait_ms) + sum(timed)) if timed else None
+    phase("cli", card=card, cli="run_ttm --two_loader", model=(
+        "TaskFusionMFTransformer3Task"), hidden=256, heads=4, layers=3,
+          img_size=IMG, frames_budget=400,
+          fixture=f"{2 * FACE}^2 noise frames, {FACE}^2 faces, nvJPEG q95 4:2:0",
+          fixture_seconds=fixture_s, wall_seconds=wall, train_steps=len(steps),
+          batches=[s["frames"] for s in steps], ms_per_step=step_ms,
+          mean_ms_per_step=sum(timed) / max(len(timed), 1),
+          loader_wait_ms=wait_ms, host_share_of_step=host,
+          peak_mem_gib=peak, decodes=image.decode_jpeg.decodes,
+          items=len(items), device_batches=len(from_card),
+          launches=counts, metrics=metrics,
+          step_launches=[s["launches"] for s in steps])
+    if not steps or not all(from_card):
+        fail(f"cli: batches not from the card loader ({from_card})")
+    # a step: 2 RGB stems and a TalkNet stem (the loader's crop launches
+    # for the batches it builds meanwhile are counted over the run)
+    for s in steps:
+        got = {k: v for k, v in s["launches"].items() if k != "crop_resize"}
+        expect = dict({k: 0 for k in got}, stem_pool_2d=2, stem_pool_3d=1)
+        if got != expect:
+            fail(f"cli: a step launched {got}, expected {expect}")
+    # every batch (train, and validation after fit and again after it)
+    # a forward of 2 + 1 stems; every item 2 crop_resize launches (RGB
+    # faces, grey squares) and a decode a frame
+    forwards = len(from_card)
+    expect = dict({k: 0 for k in counts}, stem_pool_2d=2 * forwards,
+                  stem_pool_3d=forwards, crop_resize=2 * len(items))
+    if counts != expect or image.decode_jpeg.decodes != sum(items):
+        fail(f"cli: launches {counts}, expected {expect}; decodes "
+             f"{image.decode_jpeg.decodes} for {sum(items)} frames")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"cli: metrics {metrics}")
+    try:
+        tempfile.tempdir = tmp
+        for module, args in ((run_lam, ()), (run_asd, ()),
+                             (run_asd, ("--two_loader",)),
+                             (run_multitask, ()),
+                             (run_multitask, ("--task", "unified"))):
+            before = image.crop_resize.launches
+            t0 = time.perf_counter()
+            m = module.main(_cli_argv("--synthetic", "--fast_dev_run", *args))
+            launched = image.crop_resize.launches - before
+            phase("cli", cli=f"{module.__name__.rsplit('.', 1)[1]} "
+                             f"{' '.join(args)}".strip(),
+                  seconds=time.perf_counter() - t0, metrics=m,
+                  crop_resize_launches=launched)
+            if not all(math.isfinite(v) for v in m.values()) or not launched:
+                fail(f"cli: {module.__name__} {args}: {m}")
+    finally:
+        tempfile.tempdir = saved_tmp
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
 def _line_row(name, row, counts, replaces, route="cuda",
               source="egot2x_torch/csrc/stem_pool.cu"):
     return dict(name=name, route=route, source=source, replaces=replaces,
@@ -2290,6 +2695,7 @@ def main():
 
     card = device_phase()
     build_phase()
+    nvjpeg_phase()
     kernels = {**kernel_phase(), **kernel_q_phase()}
     bwd_rows = stem_bwd_phase()
     conv = int8_conv_phase()
@@ -2316,6 +2722,8 @@ def main():
     for name in ("stage1_lam", "stage1_ttm", "stage1_asd"):
         train_counts[name], val_counts[name] = stage1_phase(card, name)
     mt_counts = egot2g_phase(card)
+    crop_row = data_phase()
+    cli_counts = cli_phase(card)
     float_stem, int8_stem = ("egot2x/ops/pallas_stem.py:251",
                              "egot2x/ops/pallas_stem.py:373")
     # each kernel at its main path's input type: f32 (float slice), bf16
@@ -2342,6 +2750,12 @@ def main():
     bwd["shapes"] = ("2D at 480 frames of 224^2 (2 a step); the 3D row's "
                      "numbers in the stem_bwd phase")
     line.append(bwd)
+    line.append(dict(
+        {k: crop_row[k] for k in (
+            "name", "route", "source", "replaces", "dtype", "design",
+            "shapes", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+        launches=cli_counts["crop_resize"]))
     for row in line:   # the training paths' launches, beside the serving's
         row["train_launches"] = {path: counts[row["name"]]
                                  for path, counts in train_counts.items()}
@@ -2349,6 +2763,7 @@ def main():
                                       for path, counts in val_counts.items()}
         row["egot2g_launches"] = {path: counts[row["name"]]
                                   for path, counts in mt_counts.items()}
+        row["cli_launches"] = cli_counts[row["name"]]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

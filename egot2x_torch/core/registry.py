@@ -29,6 +29,9 @@ class Registry:
             return obj
         return add
 
+    def __contains__(self, key: str) -> bool:
+        return key in self._objs
+
     def get(self, key: str) -> Any:
         if key not in self._objs:
             known = ", ".join(sorted(self._objs))
@@ -41,10 +44,14 @@ MODEL_REGISTRY = Registry("MODEL")
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as given, else the current CUDA card; raises when there
-    is no card and no device was asked for."""
+    """``device`` as given (a card without an index: the current one),
+    else the current CUDA card; raises when there is no card and no device
+    was asked for."""
     if device is not None:
-        return torch.device(device)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return device
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: egot2x_torch runs on the card; "
                            "pass device='cpu' to run the plain path")
@@ -62,13 +69,17 @@ def build_model(name: str, device=None, **kwargs) -> torch.nn.Module:
     ``load_state_dict``; a ``quant`` model then needs
     :func:`egot2x_torch.nn.quant.calibrate` (or calibrated scales in what
     it loads) before int8 inference, and raises without them."""
-    import egot2x_torch.models.asd  # noqa: F401  (registers)
-    import egot2x_torch.models.lam  # noqa: F401  (registers)
-    import egot2x_torch.models.ttm  # noqa: F401  (registers)
-    import egot2x_torch.translate.egot2g  # noqa: F401  (registers)
-    import egot2x_torch.translate.egot2s_hhi  # noqa: F401  (registers)
-
+    register_models()
     return place(MODEL_REGISTRY.get(name)(**kwargs), device)
+
+
+def register_models() -> None:
+    """Import every module that registers a model."""
+    import egot2x_torch.models.asd  # noqa: F401
+    import egot2x_torch.models.lam  # noqa: F401
+    import egot2x_torch.models.ttm  # noqa: F401
+    import egot2x_torch.translate.egot2g  # noqa: F401
+    import egot2x_torch.translate.egot2s_hhi  # noqa: F401
 
 
 def place(model: torch.nn.Module, device=None) -> torch.nn.Module:

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles, for ``sm_90a`` (Hopper), into a shared
 library with a plain C interface under ``build/egot2x_torch/`` at the
-repository root. The file name carries a hash of the source, so an edited
+repository root; ``jpeg.cu`` links the CUDA toolkit's nvJPEG
+(``LIBRARIES``). The file name carries a hash of the source, so an edited
 kernel is rebuilt and a built one is reused by every later process.
 Nothing is built at import: the first launch of a kernel builds it.
 """
@@ -23,6 +24,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "egot2x_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# libraries of the toolkit a source links, found beside nvcc at run time too
+LIBRARIES = {"jpeg": ("nvjpeg",)}
 
 
 @dataclass(frozen=True)
@@ -43,6 +46,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def _link_flags(name: str, nvcc: str) -> list:
+    libs = LIBRARIES.get(name, ())
+    if not libs:
+        return []
+    lib_dir = str(Path(nvcc).resolve().parent.parent / "lib64")
+    return [f"-L{lib_dir}", "-Xlinker", f"-rpath={lib_dir}",
+            *(f"-l{lib}" for lib in libs)]
+
+
 def _target(name: str) -> Path:
     digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
@@ -57,7 +69,9 @@ def build(name: str) -> Built:
         return Built(name, target, 0.0,
                      log_path.read_text() if log_path.exists() else "")
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    nvcc = _nvcc()
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+           *_link_flags(name, nvcc)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)

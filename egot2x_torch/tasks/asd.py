@@ -14,9 +14,10 @@ CE weighted [1, 4] with the labels cut to the logits' T; its metrics are
 the loss and the AV head's frame accuracy. Validation is frame accuracy
 correct / total of the AV head's argmax over the valid tracks
 (``FrameAccuracy``, which the Stage-II task shares). The model runs on the
-card unless ``device`` says otherwise. Data loading
-(``egot2x/data/{asd,bucketing}.py``) is not ported: loaders are passed to
-the Trainer.
+card unless ``device`` says otherwise, and so do its loaders' items:
+``train_loader`` and ``val_loader`` bucket the trials of ``data/asd.py``
+(``cfg.data_root``, ``batch_size`` frames a batch over ``ASD_BUCKETS``;
+train items augmented).
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from egot2x_torch.tasks.base import ModelTask, weighted_cross_entropy
+from egot2x_torch.data.asd import AsdTrialDataset
+from egot2x_torch.tasks.base import (ModelTask, bucket_loader,
+                                     weighted_cross_entropy)
 from egot2x_torch.train.optim import exponential_decay
 
 ASD_CLASS_WEIGHTS = np.asarray([1.0, 4.0], dtype=np.float32)
@@ -61,7 +64,20 @@ class FrameAccuracy:
         return {"val_acc": ctx["correct"] / max(ctx["total"], 1)}
 
 
-class ActiveSpeakerDetection(FrameAccuracy, ModelTask):
+class TrialLoaders:
+    """The ASD tasks' loaders: their ``_dataset``'s trials bucketed at
+    ``cfg.batch_size`` frames a batch over ``ASD_BUCKETS``."""
+
+    def train_loader(self):
+        return bucket_loader(self.cfg, self._dataset("train"), ASD_BUCKETS,
+                             "train")
+
+    def val_loader(self):
+        return bucket_loader(self.cfg, self._dataset("val"), ASD_BUCKETS,
+                             "eval")
+
+
+class ActiveSpeakerDetection(FrameAccuracy, TrialLoaders, ModelTask):
     def __init__(self, cfg, device=None):
         super().__init__(cfg, device, model=cfg.get("model",
                                                     "TalkNetWithHeads"))
@@ -77,6 +93,10 @@ class ActiveSpeakerDetection(FrameAccuracy, ModelTask):
 
     def _model_inputs(self, batch):
         return (batch["mfcc"], batch["faces"])
+
+    def _dataset(self, split):
+        return AsdTrialDataset(self.cfg.data_root, split=split,
+                               device=self.device)
 
     def _labels(self, outputs, batch):
         return batch["labels"][:, :outputs["logits_av"].shape[1]].long()

@@ -9,7 +9,8 @@ The model is an ASD translator returning per-frame features (B*T, D) and
 the reference's ``lossAV`` linear head on them (egot2x's ``_LossAVHead``);
 the loss is the per-frame weighted CE with ``ASD_CLASS_WEIGHTS`` over the
 B*T frames, validation is frame accuracy from the same head, as in
-Stage I.
+Stage I. Its loaders bucket the trials of ``data/asd.py`` with the RGB
+stream (``rgb_size``, 224).
 
 ``build_state`` draws the weights from a seed (the weight bridge's seeded
 tree), grafts the Stage-I checkpoints the config names into the
@@ -31,7 +32,9 @@ from egot2x_torch.core.checkpoint import graft_stage1
 from egot2x_torch.core.registry import MODEL_REGISTRY, place
 from egot2x_torch.models.asd import LossHead
 from egot2x_torch.nn.common import set_dropout_generator
-from egot2x_torch.tasks.asd import ASD_CLASS_WEIGHTS, FrameAccuracy
+from egot2x_torch.data.asd import AsdTrialDataset
+from egot2x_torch.tasks.asd import (ASD_CLASS_WEIGHTS, FrameAccuracy,
+                                    TrialLoaders)
 from egot2x_torch.tasks.base import (Task, resolve_dtype,
                                      weighted_cross_entropy)
 from egot2x_torch.train.optim import construct_optimizer
@@ -70,7 +73,7 @@ def build_translator_with_head(model_name: str = (
     return place(_TranslatorWithHead(model_name, **kwargs), device)
 
 
-class ActiveSpeakerDetection2Loader(FrameAccuracy, Task):
+class ActiveSpeakerDetection2Loader(FrameAccuracy, TrialLoaders, Task):
     """Stage-II training and frame-accuracy validation of an ASD
     translator behind the lossAV head, from ``cfg``: ``model`` (default
     ``TaskFusionMFTransformer3TaskASD``), ``hidden_dim`` (128),
@@ -89,8 +92,15 @@ class ActiveSpeakerDetection2Loader(FrameAccuracy, Task):
             dropout=cfg.get("dropout", 0.1),
             nofreeze=cfg.get("nofreeze", False),
             remat=cfg.get("remat", False))
+        self.device = next(self.model.parameters()).device
         self.class_weights = torch.from_numpy(ASD_CLASS_WEIGHTS).to(
-            next(self.model.parameters()).device)
+            self.device)
+
+    def _dataset(self, split):
+        return AsdTrialDataset(self.cfg.data_root, split=split,
+                               with_rgb=True,
+                               rgb_size=self.cfg.get("rgb_size", 224),
+                               device=self.device)
 
     def build_state(self, seed: int = 0) -> TrainState:
         """Weights drawn from ``seed``, the configured Stage-I backbones

@@ -15,6 +15,8 @@ from typing import Any, Dict, Tuple
 import torch
 
 from egot2x_torch.core.registry import build_model
+from egot2x_torch.data.bucketing import BucketBatchLoader
+from egot2x_torch.data.pipeline import BatchLoader
 from egot2x_torch.nn.common import set_dropout_generator
 from egot2x_torch.nn.quant import calibrate
 from egot2x_torch.train.optim import construct_optimizer
@@ -48,6 +50,11 @@ class Task:
     def _model_inputs(self, batch) -> tuple:
         raise NotImplementedError
 
+    def bn_forward_args(self, batch):
+        """The model's inputs for a precise-BN forward on ``batch``; None:
+        the task has no precise BN (the Trainer's hook does nothing)."""
+        return None
+
     def calibrate_state(self, state: TrainState, batch) -> TrainState:
         """One float calibration forward of the model in eval mode on
         ``batch``, recording its int8 activation scales (static PTQ); the
@@ -74,6 +81,24 @@ class Task:
             raise NotImplementedError("multi-process validation is not "
                                       "ported yet (ROADMAP.md §1 item 2)")
         return ctxs[0]
+
+
+def batch_loader(cfg, dataset, batch_size: int, mode: str):
+    """The JAX tasks' ``BatchLoader`` of ``dataset``: ``cfg.seed`` orders
+    the train epochs, ``cfg.num_workers`` threads build the items."""
+    return BatchLoader(dataset, batch_size, mode=mode,
+                       seed=cfg.get("seed", 0) if mode == "train" else 0,
+                       num_workers=cfg.get("num_workers", 8))
+
+
+def bucket_loader(cfg, dataset, buckets, mode: str, frames_budget=None):
+    """The JAX tasks' ``BucketBatchLoader`` of ``dataset`` at
+    ``cfg.batch_size`` frames a batch (or ``frames_budget``)."""
+    return BucketBatchLoader(
+        dataset, frames_budget=frames_budget or cfg.batch_size,
+        buckets=buckets, mode=mode,
+        seed=cfg.get("seed", 0) if mode == "train" else 0,
+        num_workers=cfg.get("num_workers", 8))
 
 
 def weighted_cross_entropy(logits, labels, weights):

@@ -10,9 +10,11 @@ statistics, updating their running statistics as flax does) under the
 CE weighted by ``cfg.weights`` (run_lam: [0.136, 0.864]); ``eval_step``
 scores the looking-at-me class's softmax; validation is AVA-style mAP
 and accuracy at 0.5 over the collected rows (``metrics/map.py``). The
-model runs on the card unless ``device`` says otherwise. Data loading
-(``egot2x/data/lam.py``) is not ported: loaders are passed to the
-Trainer.
+model runs on the card unless ``device`` says otherwise, and so do its
+loaders' items: ``train_loader`` and ``val_loader`` batch the 7-frame
+face clips of ``data/lam.py`` (``cfg.data_root``, ``train_stride`` /
+``val_stride``, ``img_size``, ``batch_size``); ``bn_forward_args`` feeds
+the Trainer's precise BN.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ from typing import Dict
 import numpy as np
 import torch
 
+from egot2x_torch.data.lam import LamClipDataset
 from egot2x_torch.metrics.map import run_evaluation
-from egot2x_torch.tasks.base import (ModelTask, resolve_dtype,
+from egot2x_torch.tasks.base import (ModelTask, batch_loader, resolve_dtype,
                                      weighted_cross_entropy)
 
 
@@ -38,6 +41,25 @@ class LookingAtMe(ModelTask):
 
     def _model_inputs(self, batch):
         return (batch["frames"],)
+
+    def bn_forward_args(self, batch):
+        return (batch["frames"],)
+
+    # -- data ----------------------------------------------------------------
+    def _dataset(self, split):
+        c = self.cfg
+        return LamClipDataset(
+            c.data_root, split=split,
+            stride=c.train_stride if split == "train" else c.val_stride,
+            img_size=c.img_size, device=self.device)
+
+    def train_loader(self):
+        return batch_loader(self.cfg, self._dataset("train"),
+                            self.cfg.batch_size, "train")
+
+    def val_loader(self):
+        return batch_loader(self.cfg, self._dataset("val"),
+                            self.cfg.batch_size, "eval")
 
     def loss(self, logits, batch):
         """The class-weighted CE, in f32."""

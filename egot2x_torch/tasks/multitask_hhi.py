@@ -30,9 +30,12 @@ same outputs).
 256, ``num_heads`` 4, ``num_layers`` 3, ``dropout`` 0.1, ``lr`` 1e-4).
 ``build_state`` grafts the Stage-I checkpoints that ``lam_checkpoint``,
 ``ttm_checkpoint`` and ``asd_checkpoint`` name. The model runs on the
-card unless ``device`` says otherwise. Data loading
-(``egot2x/data/{lam,ttm_2task,asd}.py``) is not ported: loaders are
-passed to the Trainer.
+card unless ``device`` says otherwise, and so do its loaders' items:
+``train_loader`` and ``val_loader`` combine LAM clips (``lam_root``,
+``lam_batch`` 4, stride 1), TTM 2-loader segments (``ttm_root``) and ASD
+trials with their RGB stream (``asd_root``), the last two in one bucket of
+``mt_frames`` (15) frames at ``ttm_budget`` / ``asd_budget`` frames a
+batch (2 ``mt_frames``), all at ``img_size``.
 """
 
 from __future__ import annotations
@@ -46,9 +49,13 @@ import torch
 from egot2x_torch.core import bridge
 from egot2x_torch.core.checkpoint import graft_stage1
 from egot2x_torch.core.registry import build_model
+from egot2x_torch.data.asd import AsdSeqDataset
+from egot2x_torch.data.combined import CombinedLoader
+from egot2x_torch.data.lam import LamSeqDataset
+from egot2x_torch.data.ttm_2task import TtmTwoTaskSeqDataset
 from egot2x_torch.metrics.map import run_evaluation
 from egot2x_torch.nn.common import set_dropout_generator
-from egot2x_torch.tasks.base import Task
+from egot2x_torch.tasks.base import Task, batch_loader, bucket_loader
 from egot2x_torch.train.optim import construct_optimizer
 from egot2x_torch.train.state import TrainState, split_params
 from egot2x_torch.translate.egot2g import FROZEN_KEYS
@@ -82,6 +89,30 @@ class Unified3TaskTranslation(Task):
             num_heads=cfg.get("num_heads", 4),
             num_layers=cfg.get("num_layers", 3),
             dropout=cfg.get("dropout", 0.1))
+        self.device = next(self.model.parameters()).device
+        self.n_frames = int(cfg.get("mt_frames", 15))   # one fixed bucket
+
+    # -- data ----------------------------------------------------------------
+    def _loaders(self, split):
+        c, n, dev = self.cfg, self.n_frames, self.device
+        mode = "train" if split == "train" else "eval"
+        lam = LamSeqDataset(self.vocab, c.lam_root, split=split, stride=1,
+                            img_size=c.img_size, device=dev)
+        ttm = TtmTwoTaskSeqDataset(self.vocab, c.ttm_root, split=split,
+                                   img_size=c.img_size, device=dev)
+        asd = AsdSeqDataset(self.vocab, c.asd_root, split=split,
+                            with_rgb=True, rgb_size=c.img_size, device=dev)
+        return {"lam": batch_loader(c, lam, c.get("lam_batch", 4), mode),
+                "ttm": bucket_loader(c, ttm, (n,), mode,
+                                     c.get("ttm_budget", 2 * n)),
+                "asd": bucket_loader(c, asd, (n,), mode,
+                                     c.get("asd_budget", 2 * n))}
+
+    def train_loader(self):
+        return CombinedLoader(self._loaders("train"))
+
+    def val_loader(self):
+        return CombinedLoader(self._loaders("val"))
 
     def build_state(self, seed: int = 0) -> TrainState:
         """Weights drawn from ``seed`` (the weight bridge's seeded tree),

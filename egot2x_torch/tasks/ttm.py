@@ -14,9 +14,10 @@ across buckets averages its chunks' logits before the softmax, then
 AVA-style mAP and accuracy over segments (``metrics/map.py``); processes'
 contexts merge by segment. The Stage-II translators train through
 ``tasks/ttm_2loader.py``, which this task's steps and validation serve.
-The model runs on the card unless ``device`` says otherwise. Data loading
-(``egot2x/data/{ttm,bucketing}.py``) is not ported: loaders are passed to
-the Trainer.
+The model runs on the card unless ``device`` says otherwise, and so do its
+loaders' items: ``train_loader`` and ``val_loader`` bucket the segments of
+``data/ttm.py`` (``cfg.data_root``, ``img_size``; ``batch_size`` frames a
+batch over ``buckets``, 15 to 150 frames).
 """
 
 from __future__ import annotations
@@ -27,8 +28,10 @@ from typing import Dict
 import numpy as np
 import torch
 
+from egot2x_torch.data.bucketing import DEFAULT_BUCKETS
+from egot2x_torch.data.ttm import TtmSegmentDataset
 from egot2x_torch.metrics.map import run_evaluation
-from egot2x_torch.tasks.base import (ModelTask, resolve_dtype,
+from egot2x_torch.tasks.base import (ModelTask, bucket_loader, resolve_dtype,
                                      weighted_cross_entropy)
 from egot2x_torch.train.optim import construct_optimizer
 
@@ -48,6 +51,24 @@ class TalkingToMe(ModelTask):
 
     def _model_inputs(self, batch):
         return (batch["frames"], batch["audio"])
+
+    @property
+    def buckets(self):
+        return tuple(self.cfg.get("buckets", DEFAULT_BUCKETS))
+
+    # -- data ----------------------------------------------------------------
+    def _dataset(self, split):
+        c = self.cfg
+        return TtmSegmentDataset(c.data_root, split=split,
+                                 img_size=c.img_size, device=self.device)
+
+    def train_loader(self):
+        return bucket_loader(self.cfg, self._dataset("train"), self.buckets,
+                             "train")
+
+    def val_loader(self):
+        return bucket_loader(self.cfg, self._dataset("val"), self.buckets,
+                             "eval")
 
     def loss(self, logits, batch):
         """The class-weighted CE, in f32."""

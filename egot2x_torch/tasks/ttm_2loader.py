@@ -14,13 +14,16 @@ too (which still run in eval mode, so their BN statistics do not move);
 calibrated by the Trainer on the first batch); they take no gradient, so
 the int8 path, accuracy-gated for inference, serves training too, and
 ``quant_trunks`` with ``nofreeze`` is refused. The model runs on the card
-unless ``device`` says otherwise.
+unless ``device`` says otherwise; its loaders bucket the four streams of
+``data/ttm_2task.py``.
 """
 
 from __future__ import annotations
 
 from egot2x_torch.core import bridge
 from egot2x_torch.core.checkpoint import graft_stage1
+from egot2x_torch.data.ttm import TtmSegmentDataset
+from egot2x_torch.data.ttm_2task import TtmTwoTaskDataset
 from egot2x_torch.tasks.ttm import TalkingToMe
 from egot2x_torch.train.state import TrainState, split_params
 from egot2x_torch.translate.egot2s_hhi import FROZEN_KEYS
@@ -59,6 +62,11 @@ class TalkingToMe2Loader(TalkingToMe):
         return (batch["frames"], batch["video_asd"], batch["audio"],
                 batch["audio_asd"])
 
+    def _dataset(self, split):
+        c = self.cfg
+        return TtmTwoTaskDataset(c.data_root, split=split,
+                                 img_size=c.img_size, device=self.device)
+
 
 class TalkingToMe2Task(TalkingToMe2Loader):
     """The LAM + TTM translator (``TaskFusionMFTransformer2Task``) on
@@ -66,3 +74,8 @@ class TalkingToMe2Task(TalkingToMe2Loader):
 
     def _model_inputs(self, batch):
         return (batch["frames"], batch["audio"])
+
+    def _dataset(self, split):
+        c = self.cfg
+        return TtmSegmentDataset(c.data_root, split=split,
+                                 img_size=c.img_size, device=self.device)

@@ -16,16 +16,21 @@ Counterpart of ``egot2x/train/trainer.py`` on one card:
     train step steps it);
   * ``fit(resume_from=...)`` restores the last checkpoint of a directory
     and goes on at the next epoch; ``fast_dev_run`` runs one train batch
-    and one validation batch and saves nothing.
+    and one validation batch and saves nothing;
+  * ``precise_bn_batches`` N > 0 recomputes the BN running statistics over
+    N train batches before each validation (``train/precise_bn.py``;
+    the reference's BN.USE_PRECISE_STATS), for tasks that give
+    ``bn_forward_args``.
 
 Loaders are any iterables of dict batches (numpy arrays or tensors;
 other values, such as segment ids, stay on the host for the task's
 ``accumulate``), or of ``{task: batch}`` dicts of them, as
-``data/combined.py::CombinedLoader`` yields for the multi-task tasks;
-the port's data path comes later (ROADMAP.md §1 item 3). The Trainer runs
-on the card unless ``device`` says otherwise, and raises when the task's
-model is elsewhere. Data-parallel training (the JAX package's mesh) is
-not ported yet (ROADMAP.md §1 item 2).
+``data/combined.py::CombinedLoader`` yields for the multi-task tasks: the
+tasks' own ``train_loader()`` and ``val_loader()`` (``data/``), whose
+items the data plane builds on the card already. The Trainer runs on the
+card unless ``device`` says otherwise, and raises when the task's model is
+elsewhere. Data-parallel training (the JAX package's mesh) is not ported:
+one process, one card.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from egot2x_torch.core.checkpoint import (epoch_path, last_epoch,
                                           load_checkpoint)
 from egot2x_torch.core.registry import resolve_device
 from egot2x_torch.nn.quant import scale_buffers
+from egot2x_torch.train.precise_bn import compute_precise_bn_stats
 from egot2x_torch.tasks.base import Task
 
 logger = logging.getLogger(__name__)
@@ -88,7 +94,8 @@ def _uncalibrated(model: torch.nn.Module) -> bool:
 class Trainer:
     def __init__(self, task: Task, max_epochs: int = 1,
                  fast_dev_run: bool = False, default_root_dir: str = "logs",
-                 log_every: int = 10, seed: int = 0, device=None):
+                 log_every: int = 10, seed: int = 0, device=None,
+                 precise_bn_batches: int = 0):
         self.task = task
         self.max_epochs = max_epochs
         self.fast_dev_run = fast_dev_run
@@ -96,6 +103,7 @@ class Trainer:
         self.log_every = log_every
         self.seed = seed
         self.device = resolve_device(device)
+        self.precise_bn_batches = precise_bn_batches
         self.ckpt: Optional[CheckpointManager] = None
         self.metrics_history = []
 
@@ -160,11 +168,29 @@ class Trainer:
             self._log_loss(epoch, pending)
             logger.info(f"epoch {epoch} done: {n_seen} steps in "
                         f"{time.time() - t0:.1f}s")
+            if self.precise_bn_batches > 0:
+                self._run_precise_bn(state, train_loader)
             val_metrics = self.validate(state, val_loader)
             self.metrics_history.append({"epoch": epoch, **val_metrics})
             if not self.fast_dev_run:
                 self.ckpt.save(state, epoch, val_metrics)
         return state
+
+    def _run_precise_bn(self, state, train_loader) -> None:
+        """The BN running statistics recomputed over ``precise_bn_batches``
+        train batches (a no-op for a task without ``bn_forward_args``)."""
+        task = self.task
+
+        def batches():
+            for batch in train_loader:
+                args = task.bn_forward_args(self._device_batch(batch))
+                if args is None:
+                    return
+                yield args
+
+        n = compute_precise_bn_stats(state.model, batches(),
+                                     self.precise_bn_batches)
+        logger.info(f"precise BN: statistics recomputed over {n} batches")
 
     @staticmethod
     def _log_loss(epoch, pending):

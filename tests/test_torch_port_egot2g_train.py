@@ -15,8 +15,9 @@ tests/test_torch_port_egot2g_eval.py holds both tasks' eval steps and
 validation against the JAX task's.
 
 Two steps on two batches. Each step the JAX task takes its step at the
-port's parameters, and JAX's gradient is read from Adam's first moment
-after it, mu_k = 0.9 mu_(k-1) + 0.1 g_k; then the JAX state goes on with
+port's parameters, and JAX's gradient is the one that step hands the
+optimizer, kept by a capturing optimizer (``capture_grads``); then the
+JAX state goes on with
 the port's gradient (``apply_gradients``), so that both stay on one
 trajectory: Adam's first steps scale a gradient g by lr / (|g| + eps),
 which turns a rounding difference in an element whose g is ~0 (k_proj's
@@ -49,7 +50,7 @@ from egot2x_torch.tasks import multitask_hhi  # noqa: E402
 from egot2x_torch.train.trainer import Trainer  # noqa: E402
 from egot2x_torch.translate.egot2g import FROZEN_KEYS  # noqa: E402
 from test_torch_port_train import (_as_jax, _leaves,  # noqa: E402
-                                   _no_dropout, _one_thread)
+                                   _no_dropout, _one_thread, capture_grads)
 
 D, HEADS, LAYERS = 32, 4, 1
 B, T, IMG, LAM_FRAMES = 2, 3, 32, 7
@@ -102,12 +103,6 @@ def _deterministic(jax_model):
     return apply
 
 
-def _adam_mu(opt_state):
-    """The first moment of the optimizer state's Adam."""
-    return next(s.mu for s in jax.tree_util.tree_leaves(
-        opt_state, is_leaf=lambda x: hasattr(x, "mu")) if hasattr(s, "mu"))
-
-
 def _cfg():
     return Config(hidden_dim=D, num_heads=HEADS, num_layers=LAYERS,
                   dropout=0.0, lr=LR, img_size=IMG)
@@ -157,11 +152,10 @@ def run(task_name):
     for i in range(STEPS):
         batches = _batches(10 + i)
         # JAX's step at the port's parameters
-        own, jmetrics = jax_step(jstate.replace(params=trainable()),
-                                 _as("jax", batches), jax.random.key(i))
-        jgrads = jax.tree_util.tree_map(
-            lambda new, old: (new - 0.9 * old) / 0.1, _adam_mu(own.opt_state),
-            _adam_mu(jstate.opt_state))
+        own, jmetrics = jax_step(
+            capture_grads(jstate.replace(params=trainable())),
+            _as("jax", batches), jax.random.key(i))
+        jgrads = own.opt_state
         state, metrics = task.train_step(state, _as("torch", batches),
                                          generator)
         grads = _as_jax(shadow, {n: p.grad for n, p in

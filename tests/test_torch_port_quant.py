@@ -76,6 +76,21 @@ def _torch(args):
     return [torch.from_numpy(a) for a in args]
 
 
+_SEEDED = {}
+
+
+def _seeded(port, seed):
+    """``bridge.random_jax_variables(port, seed)``, drawn once per seed and
+    tree (the int8 flagships of either dtype or stem layout share theirs:
+    a draw reads only the tree's shapes, ~4 s for the flagship's trunks).
+    Nothing mutates the arrays it returns."""
+    key = (seed, tuple((k, tuple(v.shape))
+                       for k, v in port.state_dict().items()))
+    if key not in _SEEDED:
+        _SEEDED[key] = bridge.random_jax_variables(port, seed)
+    return dict(_SEEDED[key])
+
+
 def _port_flagship(dtype=torch.float32, fuse_stems=True):
     return build_model("TaskFusionMFTransformer3Task", device="cpu",
                        quant=True, fuse_stems=fuse_stems, dtype=dtype, **KW)
@@ -88,7 +103,7 @@ def flagship():
     model = jax_build("TaskFusionMFTransformer3Task", quant=True,
                       fuse_stems=True, **KW)
     port = _port_flagship()
-    variables = bridge.random_jax_variables(port, seed=1)
+    variables = _seeded(port, 1)
     x = _flagship_inputs(0)
     variables = calibrate_variables(model, variables, *map(jnp.asarray, x),
                                     train=False)
@@ -202,7 +217,7 @@ def test_calibrate_reproduces_jax_scales(flagship):
     scales ``calibrate_variables`` does, every one of them."""
     _, _, variables, x = flagship
     port = _port_flagship()
-    bridge.load_jax_variables(port, bridge.random_jax_variables(port, 1))
+    bridge.load_jax_variables(port, _seeded(port, 1))
     assert all(float(b) == 0 for _, b in scale_buffers(port))
     calibrate(port, *_torch(x))
     got = _leaves(bridge.to_jax_variables(port)["quant"])
@@ -233,7 +248,7 @@ def test_flagship_int8_bf16_matches_jax():
     port = _port_flagship(torch.bfloat16)
     x = _flagship_inputs(0)
     variables = calibrate_variables(
-        model, bridge.random_jax_variables(port, seed=1),
+        model, _seeded(port, 1),
         *map(jnp.asarray, x), train=False)
     bridge.load_jax_variables(port, variables)
     ours = _jax_logits(model, variables, x)
@@ -275,7 +290,7 @@ def test_quant_model_draws_the_float_models_weights():
 
 def test_uncalibrated_quant_forward_raises():
     port = _port_flagship()
-    bridge.load_jax_variables(port, bridge.random_jax_variables(port, 1))
+    bridge.load_jax_variables(port, _seeded(port, 1))
     with pytest.raises(ValueError, match="uncalibrated"), torch.no_grad():
         port(*_torch(_flagship_inputs(0)))
 
@@ -309,10 +324,10 @@ def test_fuse_stems_inert_at_calibration(flagship):
     bar, tests/test_fused_stem.py:63)."""
     _, fused, _, x = flagship
     separate = _port_flagship(fuse_stems=False)
-    bridge.load_jax_variables(separate, bridge.random_jax_variables(fused, 1))
+    bridge.load_jax_variables(separate, _seeded(fused, 1))
     calibrate(separate, *_torch(x))
     recal = _port_flagship()
-    bridge.load_jax_variables(recal, bridge.random_jax_variables(fused, 1))
+    bridge.load_jax_variables(recal, _seeded(fused, 1))
     calibrate(recal, *_torch(x))
     for (name, a), (_, b) in zip(scale_buffers(separate),
                                  scale_buffers(recal)):

@@ -6,8 +6,10 @@ own task: its ``build_state`` (``optax.adam``) and its jitted
 layout through the weight bridge) on the same batches of B=2 clips of
 T=7 frames at 32^2, class weights [0.136, 0.864] (run_lam's), f32 on the
 CPU. Both run their BNs on batch statistics and update the running ones
-(flax's momentum 0.9, biased variance). JAX's gradient is read from Adam's
-first moment after its step, mu = (1 - 0.9) g.
+(flax's momentum 0.9, biased variance). JAX's gradient is the one its
+``train_step`` hands the optimizer, taken with an optimizer that keeps it
+(``capture_grads``); its Adam then runs over a packed tree
+(``PackedAdam``).
 
 Tolerances: loss rtol 1e-5; first-step gradients of every leaf rtol 1e-4,
 atol 1e-6, and of the ResNet-18's by leaf norm, 1e-4 relative (plus that
@@ -37,8 +39,8 @@ from egot2x.tasks.lam import LookingAtMe as JaxLookingAtMe  # noqa: E402
 from egot2x_torch.core import bridge  # noqa: E402
 from egot2x_torch.core.config import Config  # noqa: E402
 from egot2x_torch.tasks.lam import LookingAtMe  # noqa: E402
-from test_torch_port_train import (_as_jax, _leaves,  # noqa: E402
-                                   _one_thread)
+from test_torch_port_train import (PackedAdam, _as_jax,  # noqa: E402
+                                   _leaves, _one_thread, capture_grads)
 
 B, T, IMG = 2, 7, 32
 WEIGHTS = [0.136, 0.864]
@@ -48,14 +50,6 @@ LR, SEED = 5e-4, 1
 # f64 step (a batch-statistics BN's gradient subtracts its mean and
 # projection terms, which cancel most of each element)
 TRUNK_RTOL = 1e-4
-
-
-def _adam_mu(opt_state):
-    """Adam's first moment in an optax state (a chain or not)."""
-    states = jax.tree_util.tree_leaves(
-        opt_state, is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
-    return next(s.mu for s in states
-                if isinstance(s, optax.ScaleByAdamState))
 
 
 def jax_step_task(jax_cls, cfg, variables, apply, **attrs):
@@ -69,22 +63,20 @@ def jax_step_task(jax_cls, cfg, variables, apply, **attrs):
     return task
 
 
-def step_oracle(task, state, jax_task, batches, wd=0.0):
+def step_oracle(task, state, jax_task, batches):
     """The port task's ``train_step`` on ``batches`` (numpy dicts) from
     ``state``, and the JAX task's own jitted ``train_step`` on the
-    first from the same weights; then JAX's ``apply_gradients`` on the
-    port's gradients of each step. Everything in the JAX layout. ``wd``:
-    the coupled weight decay, taken back out of Adam's first moment where
-    optax's mask applies it (leaves of two or more axes)."""
+    first from the same weights (its gradient kept by ``capture_grads``);
+    then the JAX task's optimizer (``PackedAdam``) on the port's gradients
+    of each step. Everything in the JAX layout."""
     model = task.model
     variables = bridge.to_jax_variables(model)
     jstate0 = jax_task.build_state(jax.random.key(0))
     jstate, jmetrics = jax.jit(jax_task.train_step)(
-        jstate0, {k: jnp.asarray(v) for k, v in batches[0].items()},
+        capture_grads(jstate0),
+        {k: jnp.asarray(v) for k, v in batches[0].items()},
         jax.random.key(1))
-    jax_grads = jax.tree_util.tree_map(
-        lambda m, p: m / (1 - 0.9) - (wd * p if p.ndim >= 2 else 0.0),
-        _adam_mu(jstate.opt_state), jstate0.params)
+    jax_grads = jstate.opt_state
     shadow = copy.deepcopy(model)
     steps = []
     for batch in batches:
@@ -97,10 +89,9 @@ def step_oracle(task, state, jax_task, batches, wd=0.0):
                                    model.named_parameters()
                                    if p.grad is not None}),
             stats=bridge.to_jax_variables(model)["batch_stats"]))
-    apply = jax.jit(lambda js, g: js.apply_gradients(g))
-    adam = jstate0
+    adam = PackedAdam(jstate0.params, jstate0.tx)
     for step in steps:
-        adam = apply(adam, step["grads"])
+        adam.apply(step["grads"])
     return dict(
         state=state, variables=variables, steps=steps,
         metrics=steps[0]["metrics"],
@@ -109,7 +100,7 @@ def step_oracle(task, state, jax_task, batches, wd=0.0):
         stats=_leaves(steps[0]["stats"]),
         jax_stats=_leaves(jstate.batch_stats),
         params=_leaves(bridge.to_jax_variables(model)["params"]),
-        jax_params=_leaves(adam.params))
+        jax_params=_leaves(adam.params()))
 
 
 def check_step(oracle, trunks, trunk_rtol=TRUNK_RTOL, leaf_cosine=None):

@@ -68,8 +68,7 @@ def ttm():
     jax_model = jax_build("TTMBaselineLSTM")
     jax_task = jax_step_task(JaxTalkingToMe, cfg, variables, jax_model.apply,
                              class_weights=np.asarray(WEIGHTS, np.float32))
-    oracle = step_oracle(task, state, jax_task, [_batch(20), _batch(21)],
-                         wd=WD)
+    oracle = step_oracle(task, state, jax_task, [_batch(20), _batch(21)])
     return dict(task=task, oracle=oracle, variables=variables,
                 eval_fn=jax.jit(lambda v, x, a: jax_model.apply(v, x, a)))
 

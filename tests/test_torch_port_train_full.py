@@ -4,7 +4,8 @@
 eval mode) through the float stems' gradient (``ops/stem.py::_StemPool``,
 whose CPU halves run here); ``remat`` recomputes the trunks in the
 backward. At the golden shapes of tests/test_torch_port_train.py (B=2,
-T=4, IMG=64, D=64, 1 layer, 4 heads), the same seeded weights (JAX layout
+T=4, IMG=64, faces 48^2, D=64, 1 layer, 4 heads), the same seeded weights
+(JAX layout
 through the weight bridge) and the same batches, f32 on the CPU:
 
 * the stem Functions, 2D and 3D: gradients of x, weight, scale and bias
@@ -56,11 +57,12 @@ from egot2x_torch.tasks.ttm_2loader import (TalkingToMe2Loader,  # noqa: E402
 from egot2x_torch.train.optim import construct_optimizer  # noqa: E402
 from egot2x_torch.train.state import TrainState, split_params  # noqa: E402
 from egot2x_torch.translate.egot2s_hhi import FROZEN_KEYS  # noqa: E402
-from test_torch_port_train import (_as_jax, _leaves,  # noqa: E402
-                                   _no_dropout, _one_thread)
+from test_torch_port_train import (PackedAdam, _as_jax,  # noqa: E402
+                                   _leaves, _no_dropout, _one_thread)
 
 D, HEADS, LAYERS = 64, 4, 1
 B, T, IMG = 2, 4, 64
+FACE = 48   # TalkNet's grey faces (it pools them globally at any size)
 WEIGHTS = [0.266, 0.734]
 LR, WD, STEPS = 1e-3, 1e-2, 2
 SEED = 1
@@ -82,7 +84,7 @@ def _batch(seed, n=B, t=T):
     rng = np.random.default_rng(seed)
     return dict(
         frames=rng.standard_normal((n, t, IMG, IMG, 3)).astype(np.float32),
-        video_asd=rng.uniform(0, 255, (n, t, 112, 112)).astype(np.float32),
+        video_asd=rng.uniform(0, 255, (n, t, FACE, FACE)).astype(np.float32),
         audio=np.zeros((n, t * 16000 // 30), np.float32),
         audio_asd=rng.standard_normal((n, 4 * t, 13)).astype(np.float32),
         label=np.arange(n, dtype=np.int32) % 2)
@@ -264,7 +266,7 @@ def oracle(flagship):
             return jax_wce(out, batch["label"], weights)
         return jax.value_and_grad(loss_fn)(js.params)
 
-    apply = jax.jit(lambda js, grads: js.apply_gradients(grads))
+    adam = PackedAdam(params, jstate.tx)
     shadow = copy.deepcopy(model)
     gen = torch.Generator().manual_seed(0)
     steps = []
@@ -274,7 +276,7 @@ def oracle(flagship):
             k: jnp.asarray(batch[k]) for k in INPUTS + ("label",)})
         state, metrics = t.train_step(state, _torch_batch(batch), gen)
         grads = _as_jax(shadow, _grads(model))
-        jstate = apply(jstate, grads)
+        jstate = jstate.replace(params=adam.apply(grads).params())
         steps.append((float(metrics["loss"]), float(jloss), _leaves(grads),
                       _leaves(jgrads)))
     return dict(steps=steps, state=state, stats_before=stats_before,
@@ -313,8 +315,10 @@ def test_nofreeze_later_gradients_match_jax(oracle, step):
     LATER_STEP_RTOL for the fusion core's leaves and TRUNK_LATER_RTOL for
     the trunks': after a step the two sides' weights differ by ~1e-7, and
     one ReLU input of the LAM trunk's layer4.0 then lies across the kink
-    from JAX's, moving the LAM leaves below it by up to 8.4e-3 of their
-    norm (PERF.md gives the readings); the core's leaves read <= 2.5e-5.
+    from JAX's, moving the LAM leaves below it by up to 9.9e-3 of their
+    norm (readings at these batches, on one thread); the core's leaves
+    read <= 2.5e-5 (leaves whose gradient is 0 in exact arithmetic, the
+    attention key biases, by the atol).
     A gradient routed wrong is off by O(1)."""
     _, _, grads, jax_grads = oracle["steps"][step]
     assert sorted(grads) == sorted(jax_grads)
