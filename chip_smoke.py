@@ -168,9 +168,34 @@ with the kernels, and its version printed after the build):
               ``run_multitask`` (both tasks) with ``--synthetic
               --fast_dev_run`` on the card.
 
+then the TTM baselines and HOI Stage-I inference:
+ 20. ttm_baselines  ``FinetuneTTM``, ``LAM2TTM``, ``ASD2TTM`` and
+              ``TaskFusionLFLinear3Task`` at run_ttm --two_loader's widths
+              (hidden 256, ``hidden_dim2`` 512) with seeded weights on one
+              request of 16 clips x 30 frames (RGB 224^2, faces 112^2,
+              MFCC), f32 and uint8 feeds: one 2D stem launch a forward of
+              the first two, one 3D of the third, 2 + 1 of the late fusion,
+              exact; clip 0 against the port's CPU forward; one frozen
+              ``FinetuneTTM`` train step through ``TalkingToMe2Loader``
+              after a warm-up one (the head moves, the trunk bit for bit);
+ 21. hoi     kernel 1 at the PNR crop (256 frames of 225^2 raw pixels,
+              conv 113^2, pool 57^2) against its plain version, f32 and
+              bf16, with times and bound; then at pnr_train's defaults
+              (batch 16, 16 frames, crop 225, ``slow_layer5``, depth 50,
+              raw [0, 255] frames) ``KeyframeLocalizationResNet`` (with
+              dot_product Nonlocals after res3 and res4 block 1; logits
+              (16, 16), tokens (16, 16, 8192)), ``StateChangeClsResNet``
+              (``no_temp_pool`` off and on), ``DualHeadResNet`` and
+              ``KeyframeCnnLSTM`` (one 2D stem
+              launch a forward, for its 256 frames): feeds agreeing, the
+              first 4 clips and the tokens against the port's CPU forward,
+              the PNR metrics of those clips equal, ms a batch, clips/s,
+              peak memory and the device's busy share.
+
 Then one JSON line of every kernel (with its launches on each training
-path, each Stage-I validation forward, each EgoT2-g path and the CLI's
-epoch), and as the last line
+path, each Stage-I validation forward, each EgoT2-g path, the CLI's
+epoch, the TTM baselines' and HOI's paths; kernel 1's row also at 225^2),
+and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Float32 runs in full f32 throughout: TF32 is off for cuDNN and for
 matmuls, so the card and the CPU compute the same function.
@@ -206,6 +231,13 @@ F32_CUDA_CORE_FLOPS = 67e12
 # kernel vs plain: f32 as tests/test_pallas_stem.py holds the Pallas kernel;
 # bf16 output is one rounding of the f32 result (2^-8 relative)
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# f32 kernel on raw 0-255 frames vs the plain version in f64: KERNEL_TOL
+# plus this share of each output's sum of term magnitudes (3xFP16 keeps 22
+# bits of each product; the f32 sums lose about as much again). Measured
+# on an H100 at 256 frames of 225^2: the kernel 4.3e-4 at most, cuDNN's
+# f32 conv 4.0-4.2e-4 (15 outputs over the bare 1e-4); the sums reach
+# ~2,300 a window, so the bar adds up to ~2.2e-3
+F32_TERM_TOL = 2.0 ** -20
 # int8 stem vs plain: one quantum anywhere, >= 99.9% equal (the f32 conv
 # sums in another order, so a value at a rounding boundary can flip)
 INT8_SHARE_EQUAL = 0.999
@@ -340,6 +372,30 @@ FULL_CHROMA = "ref_3"   # egot2x_torch/tools/make_jpeg_refs.py's 4:4:4 file
 # 1.05-1.50)
 JPEG_444_MAX, JPEG_LUMA_MEAN, JPEG_ROUND_TRIP_LUMA = 3, 1.0, 2.0
 JPEG_CHROMA_MEAN = 3.0
+# the TTM baselines (ttm_baselines) at run_ttm --two_loader's widths
+# (egot2x/cli/run_ttm.py:19-62: hidden_dim 256, and hidden_dim2 512, which
+# the JAX task never passes, so the models' default) on one request of
+# B clips x T frames; the stem launches of one forward (2D, 3D)
+TTM_BASELINES = {"FinetuneTTM": (1, 0), "LAM2TTM": (1, 0), "ASD2TTM": (0, 1),
+                 "TaskFusionLFLinear3Task": (2, 1)}
+TTM_HIDDEN, TTM_HIDDEN2 = 256, 512
+# HOI Stage-I inference (hoi) at pnr_train's defaults (egot2x/cli/
+# pnr_train.py:36-44: batch 16, clip_len_sec 8 x sampling_fps 2 = 16
+# frames, crop 225, slow_layer5, depth 50), full width and depth, raw
+# [0, 255] frames; the keyframe model with a dot_product Nonlocal after
+# res3 and res4 block 1 (where PySlowFast puts them: after res2, 57^2 x 16
+# positions against a quarter of them, the affinity alone would take 43 GB
+# at batch 16). The CPU answers the first PNR_CPU_CLIPS clips:
+# clip 0's outputs, and the PNR metrics over those clips, against the
+# card's. The random weights' stem BN (and dot_product Nonlocal BN)
+# statistics are fitted to a calibration batch by precise BN (a trained
+# model's match its raw-pixel inputs; with the drawn ones, near (0, 1),
+# activations grow without bound: tests/test_torch_port_resnet3d.py)
+PNR_CLIPS, PNR_FRAMES, PNR_CROP = 16, 16, 225
+PNR_CPU_CLIPS = 4
+PNR_REPEATS = 3
+PNR_NONLOCAL = [[[]], [[1]], [[1]], [[]]]
+TOKEN_TOL = 1e-4   # the 8192-d tokens, card vs CPU, of each token's norm
 
 
 def fail(msg):
@@ -621,36 +677,85 @@ def kernel_phase():
 
     from egot2x_torch.ops import stem
 
-    fns = {"2d": (stem.stem_pool_2d, stem.stem_pool_2d_plain),
-           "3d": (stem.stem_pool_3d, stem.stem_pool_3d_plain)}
     results = {}
-    for kind, (kernel, plain) in fns.items():
+    for kind in ("2d", "3d"):
         w, scale, bias = _stem_params(kind)
         for dtype in ("float32", "bfloat16"):
-            x = _stem_frames(kind, dtype)
-            out = kernel(x, w, scale, bias)
-            torch.cuda.synchronize()
-            ref = plain(x.float(), w, scale, bias)
-            tol = KERNEL_TOL[dtype]
-            err = (out.float() - ref).abs()
-            ok = bool((err <= tol + tol * ref.abs()).all())
-            row = dict(
-                kernel=f"stem_pool_{kind}", dtype=dtype, shape=list(x.shape),
-                out_shape=list(out.shape), max_abs_err=float(err.max()),
-                tol=tol, ok=ok, ms=time_ms(lambda: kernel(x, w, scale, bias)),
-                plain_ms=time_ms(lambda: plain(x, w, scale, bias)),
-                library_ms=time_ms(_library_call(kind, x, w, scale, bias)))
-            (row["bound_ms"], row["bound_by"], row["flops"],
-             row["bytes"]) = _bound(kind, x, out)
-            row.update(_design("stem_pool", dtype, row["flops"]))
-            phase("kernel", **row)
-            if not ok:
-                fail(f"stem_pool_{kind} {dtype} disagrees with its plain "
-                     f"version: max abs err {row['max_abs_err']}")
+            row = _float_stem_row(kind, _stem_frames(kind, dtype), w, scale,
+                                  bias)
             results[row["kernel"], dtype] = row
-            del x, out, ref, err
-            torch.cuda.empty_cache()
     return results
+
+
+def _term_magnitude(x, w, scale):
+    """Per pooled output of the 2D stem, the largest sum of its conv's
+    terms' magnitudes over its 3x3 window, times |BN scale|: what an f32
+    conv's rounding is proportional to (max-pool passes on at most the
+    largest error of its window)."""
+    import torch.nn.functional as F
+
+    m = F.conv2d(x.double().abs().permute(0, 3, 1, 2), w.double().abs(),
+                 stride=2, padding=3) * scale.double().abs()[:, None, None]
+    return F.max_pool2d(m, 3, 2, 1).permute(0, 2, 3, 1)
+
+
+def _float_stem_row(kind, x, w, scale, bias, name="kernel", f64=False,
+                    **fields):
+    """One float stem kernel on ``x`` against its plain version: its row
+    (error, times, bound), printed as phase ``name``; fails if they
+    disagree. ``f64`` (2D, raw 0-255 frames): f32 input is held against
+    the plain version in float64, as tests/test_torch_port_cuda.py holds
+    raw frames, at KERNEL_TOL plus F32_TERM_TOL of each output's sum of
+    term magnitudes (``_term_magnitude``): on raw frames those sums are
+    ~1,200, ~100x a normalised frame's, and the library's own f32 conv
+    misses the bare 1e-4 there (its error is printed beside); bf16 input
+    against the f32 plain version."""
+    import torch
+
+    from egot2x_torch.ops import stem
+
+    kernel, plain = ((stem.stem_pool_2d, stem.stem_pool_2d_plain)
+                     if kind == "2d" else
+                     (stem.stem_pool_3d, stem.stem_pool_3d_plain))
+    dtype = str(x.dtype).split(".")[1]
+    out = kernel(x, w, scale, bias)
+    torch.cuda.synchronize()
+    tol = KERNEL_TOL[dtype]
+    slack = 0.0
+    if f64 and dtype == "float32":
+        ref = plain(x.double(), w.double(), scale.double(), bias.double())
+        slack = F32_TERM_TOL * _term_magnitude(x, w, scale)
+        lib = (plain(x, w, scale, bias).double() - ref).abs()
+        fields.update(
+            reference="plain version in float64",
+            term_tol=F32_TERM_TOL, max_term_magnitude=float(slack.max()
+                                                            / F32_TERM_TOL),
+            plain_f32_max_abs_err=float(lib.max()),
+            plain_f32_outputs_over_kernel_tol=int(
+                (lib > tol + tol * ref.abs()).sum()))
+        del lib
+    else:
+        ref = plain(x.float(), w, scale, bias)
+    err = (out.float() - ref).abs()
+    ok = bool((err <= tol + tol * ref.abs() + slack).all())
+    del slack
+    row = dict(
+        kernel=f"stem_pool_{kind}", dtype=dtype, **fields,
+        shape=list(x.shape), out_shape=list(out.shape),
+        max_abs_err=float(err.max()), tol=tol, ok=ok,
+        ms=time_ms(lambda: kernel(x, w, scale, bias)),
+        plain_ms=time_ms(lambda: plain(x, w, scale, bias)),
+        library_ms=time_ms(_library_call(kind, x, w, scale, bias)))
+    (row["bound_ms"], row["bound_by"], row["flops"],
+     row["bytes"]) = _bound(kind, x, out)
+    row.update(_design("stem_pool", dtype, row["flops"]))
+    phase(name, **row)
+    if not ok:
+        fail(f"stem_pool_{kind} {dtype} {list(x.shape)} disagrees with its "
+             f"plain version: max abs err {row['max_abs_err']}")
+    del x, out, ref, err
+    torch.cuda.empty_cache()
+    return row
 
 
 def kernel_q_phase():
@@ -2669,6 +2774,361 @@ def cli_phase(card):
     return counts
 
 
+def _seeded(name, device=None, seed=SEED, **kw):
+    """``name`` built by ``build_model`` with the bridge's weights drawn
+    from ``seed``."""
+    from egot2x_torch.core import bridge
+    from egot2x_torch.core.registry import build_model
+
+    model = build_model(name, device=device, **kw)
+    bridge.load_jax_variables(model, bridge.random_jax_variables(model, seed))
+    return model
+
+
+def _cpu_twin(name, model, **kw):
+    """``name`` on the CPU (plain versions) with ``model``'s state."""
+    from egot2x_torch.core.registry import build_model
+
+    cpu = build_model(name, device="cpu", **kw)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return cpu
+
+
+def ttm_baselines_phase(card, request):
+    """The TTM baselines at run_ttm --two_loader's widths on one request
+    (16 clips x 30 frames, RGB 224^2, faces 112^2, MFCC), every launch
+    count set to 0 just before and read just after: per model a warm-up,
+    one timed forward (f32 feed) and the uint8 feed, exact stem launches,
+    finite logits, the feeds agreeing, clip 0 against the port's CPU
+    forward; then one frozen train step of ``FinetuneTTM`` through
+    ``TalkingToMe2Loader`` after a warm-up one: the head moves, the trunk's
+    weights and BN statistics stay bit for bit. Returns the launch
+    counts."""
+    import torch
+
+    from egot2x_torch.core.config import Config
+    from egot2x_torch.tasks.ttm_2loader import TalkingToMe2Loader
+
+    feeds = {f: [torch.from_numpy(a).cuda() for a in request[f]]
+             for f in ("f32", "u8")}
+    mfcc = torch.from_numpy(request["mfcc"]).cuda()
+    audio = torch.zeros(B, T * 16000 // 30, device="cuda")
+    widths = dict(hidden_dim=TTM_HIDDEN, hidden_dim2=TTM_HIDDEN2)
+    models = {name: _seeded(name, seed=SEED + i, **widths)
+              for i, name in enumerate(TTM_BASELINES)}
+    for fn in _counters().values():
+        fn.launches = 0
+    forwards, outs = {}, {}
+    with torch.no_grad():
+        for name, model in models.items():
+            model(*feeds["f32"], audio, mfcc)                # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            logits = model(*feeds["f32"], audio, mfcc)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            u8 = model(*feeds["u8"], audio, mfcc)
+            outs[name] = logits
+            forwards[name] = 3
+            _check_finite(f"ttm_baselines {name}", {"f32": logits, "u8": u8},
+                          (B, 2))
+            scale = 1.0 + float(logits.abs().max())
+            feed_err = float((u8 - logits).abs().max())
+            want = _cpu_twin(name, model, **widths)(
+                *(torch.from_numpy(a[:1]) for a in request["f32"]),
+                audio[:1].cpu(), torch.from_numpy(request["mfcc"][:1]))
+            errs = _check_close(f"ttm_baselines {name}, clip 0 card vs CPU",
+                                {"logits": logits[:1]}, {"logits": want})
+            phase("ttm_baselines", card=card, model=name, **widths,
+                  clips=B, frames=T, rgb=IMG, faces=ASD_IMG, ms=ms,
+                  clips_per_s=B * 1e3 / ms,
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  max_abs_err_cpu_clip0=errs["logits"],
+                  max_abs_err_u8_vs_f32_feed=feed_err, tol=LOGIT_TOL,
+                  logits_clip0_card=logits[0].tolist(),
+                  logits_clip0_cpu=want[0].tolist())
+            if feed_err > LOGIT_TOL * scale:
+                fail(f"ttm_baselines {name}: uint8 feed differs from the "
+                     f"f32 feed by {feed_err}")
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    expect = _expected(1, stem_pool_2d=sum(
+        forwards[n] * TTM_BASELINES[n][0] for n in models), stem_pool_3d=sum(
+        forwards[n] * TTM_BASELINES[n][1] for n in models))
+    phase("ttm_baselines", launches=counts, expected_launches=expect,
+          per_forward={n: dict(zip(("stem_pool_2d", "stem_pool_3d"), v))
+                       for n, v in TTM_BASELINES.items()})
+    if counts != expect:
+        fail(f"ttm_baselines: launches {counts}, expected {expect}")
+    del models, outs
+    torch.cuda.empty_cache()
+
+    # one frozen train step through the task, after a warm-up step
+    task = TalkingToMe2Loader(Config(
+        model="FinetuneTTM", weights=TTM_CLASS_WEIGHTS, lr=5e-4, wd=0.0,
+        hidden_dim=TTM_HIDDEN))
+    state = task.build_state(SEED)
+    model = state.model
+    head = {n: p.detach().clone() for n, p in model.named_parameters()
+            if p.requires_grad}
+    trunk = {k: v.clone() for k, v in model.state_dict().items()
+             if k.startswith("ttm_model.")}
+    generator = torch.Generator("cuda").manual_seed(SEED + 7)
+    state, losses, seconds, peak_gib, step_counts = _train_steps(
+        task, state, _train_batches(2, SEED + 30), generator)
+    expect = _expected(2, stem_pool_2d=1)
+    moved, dead, changed = _check_trained(
+        "ttm_baselines train", model, head, trunk, losses, step_counts,
+        expect)
+    phase("ttm_baselines_train", card=card, model="FinetuneTTM",
+          task="TalkingToMe2Loader", hidden=TTM_HIDDEN,
+          hidden2=TTM_HIDDEN2, clips=B, frames=T, ms_per_step=seconds * 1e3,
+          peak_mem_gib=peak_gib, losses=losses,
+          head_leaves_moved=f"{moved} of {len(head)}",
+          leaves_with_zero_gradient=dead, trunk_entries=len(trunk),
+          trunk_entries_changed=changed, launches=step_counts,
+          expected_launches=expect)
+    if not all(k.startswith("head.") for k in head):
+        fail(f"ttm_baselines train: trainable outside the head: "
+             f"{sorted(k for k in head if not k.startswith('head.'))[:3]}")
+    return {k: counts[k] + step_counts[k] for k in counts}
+
+
+def _pnr_labels(n, seed):
+    """Seeded PNR labels of ``n`` clips: state change, one-hot keyframes,
+    fps and the clip's frame span and PNR frame."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    start = rng.integers(0, 300, n)
+    return dict(state=rng.integers(0, 2, n),
+                keyframes=np.eye(PNR_FRAMES)[rng.integers(0, PNR_FRAMES, n)],
+                fps=np.full(n, 30.0), start=start, end=start + 240,
+                pnr=start + rng.integers(0, 240, n))
+
+
+def _pnr_metrics(kind, out, labels):
+    """The PNR metrics of the CPU clips' outputs: keyframe distance and
+    accuracy of keyframe logits or scores, state-change accuracy of
+    state logits."""
+    import numpy as np
+
+    from egot2x_torch.metrics import pnr
+
+    out = {k: np.asarray(v.float().cpu())[:PNR_CPU_CLIPS]
+           for k, v in out.items()}
+    lab = {k: v[:PNR_CPU_CLIPS] for k, v in labels.items()}
+    got = {}
+    if "keyframe" in out:
+        got["keyframe_distance"] = pnr.keyframe_distance(
+            out["keyframe"], lab["state"], lab["fps"], lab["start"],
+            lab["end"], lab["pnr"], num_frames=PNR_FRAMES)
+        got["keyframe_accuracy"] = pnr.keyframe_accuracy(
+            out["keyframe"], lab["keyframes"], lab["state"])
+    if "state" in out:
+        got["state_change_accuracy"] = pnr.state_change_accuracy(
+            out["state"], lab["state"])
+    return got
+
+
+# (model, kwargs, what it answers): a keyframe model's "keyframe" are its
+# (B, T) logits or scores, a state model's "state" its (B, 2) logits
+PNR_MODELS = (
+    ("KeyframeLocalizationResNet", dict(nonlocal_cfg=PNR_NONLOCAL),
+     ("keyframe",)),
+    ("StateChangeClsResNet", dict(), ("state",)),
+    ("StateChangeClsResNet", dict(no_temp_pool=True), ("state",)),
+    ("DualHeadResNet", dict(), ("keyframe", "state")),
+    ("KeyframeCnnLSTM", dict(), ("keyframe",)),
+)
+
+
+def _pnr_outputs(name, out):
+    """{"keyframe": (B, T), "state": (B, 2)} of a PNR model's output."""
+    if name == "DualHeadResNet":
+        return {"keyframe": out[0], "state": out[1]}
+    if name == "KeyframeLocalizationResNet":
+        return {"keyframe": out[..., 0]}   # as the PNR task squeezes it
+    if name == "KeyframeCnnLSTM":
+        return {"keyframe": out}
+    return {"state": out}
+
+
+def _pnr_build(name, kw, calibration):
+    """A PNR model on the card with the seeded weights, the statistics of
+    its stem's BN and of its dot_product Nonlocals' BNs fitted to
+    ``calibration`` by precise BN."""
+    from egot2x_torch.nn.resnet3d import Nonlocal, resolve_nonlocal
+    from egot2x_torch.train.precise_bn import compute_precise_bn_stats
+
+    kw = dict(kw)
+    if "nonlocal_cfg" in kw:
+        kw["nonlocal_cfg"] = resolve_nonlocal(kw["nonlocal_cfg"])
+    if name != "KeyframeCnnLSTM":
+        kw["crop_size"] = PNR_CROP
+    model = _seeded(name, **kw)
+    stem_bn = (model.backbone.bn1 if name == "KeyframeCnnLSTM"
+               else model.trunk.s1.bn)
+    bns = [stem_bn] + [m.bn for m in model.modules()
+                       if isinstance(m, Nonlocal)
+                       and m.instantiation == "dot_product"]
+    compute_precise_bn_stats(model, [(calibration,)], 1, bns=bns)
+    return model, kw
+
+
+def _busy_share(forward):
+    """One forward traced by ``torch.profiler``: (device busy share of its
+    wall time, device ms by kernel class)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from egot2x_torch.tools.profile_flagship import device_breakdown
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    row = device_breakdown(prof, 1, traced_ms)
+    return row["device_busy_share"], row["by_category"]
+
+
+def hoi_phase(card):
+    """HOI Stage-I inference at pnr_train's defaults: kernel 1 at the PNR
+    crop (256 frames of 225^2) against its plain version first; then each
+    PNR model (``PNR_MODELS``) with every launch count set to 0 just before
+    and read just after: a warm-up, ``PNR_REPEATS`` timed forwards of the
+    f32 [0, 255] feed, the uint8 feed (``KeyframeCnnLSTM`` also the
+    ImageNet-normalised f32 feed its uint8 feed equals) and the keyframe
+    model's tokens; exact stem launches (one a ``KeyframeCnnLSTM`` forward,
+    none on the ResNet3D models, whose video stem is the library's);
+    finite outputs of the expected shapes; the feeds agreeing; the first
+    ``PNR_CPU_CLIPS`` clips against the port's CPU forward (LOGIT_TOL,
+    tokens TOKEN_TOL of their norm) and the PNR metrics of those clips
+    equal; ms a batch, clips/s, peak memory and the device's busy share
+    (one traced forward). Returns (launch counts, the 225^2 kernel rows)."""
+    import numpy as np
+    import torch
+
+    from egot2x_torch.data.lam import normalize_frames
+
+    rng = np.random.default_rng(SEED + 40)
+    frames_u8 = rng.integers(0, 256, (PNR_CLIPS, PNR_FRAMES, PNR_CROP,
+                                      PNR_CROP, 3), dtype=np.uint8)
+    calibration = torch.from_numpy(rng.integers(
+        0, 256, frames_u8.shape, dtype=np.uint8)).cuda()
+    u8 = torch.from_numpy(frames_u8).cuda()
+    f32 = u8.float()
+    labels = _pnr_labels(PNR_CLIPS, SEED + 41)
+
+    w, scale, bias = _stem_params("2d")
+    flat = f32.reshape(-1, PNR_CROP, PNR_CROP, 3)
+    rows = {dtype: _float_stem_row("2d", flat.to(getattr(torch, dtype)), w,
+                                   scale, bias, name="hoi_kernel", f64=True,
+                                   path="KeyframeCnnLSTM at the PNR crop, "
+                                        "raw 0-255 frames")
+            for dtype in ("float32", "bfloat16")}
+    del flat
+
+    total = {k: 0 for k in _counters()}
+    for name, kw, answers in PNR_MODELS:
+        cnn = name == "KeyframeCnnLSTM"
+        model, kw = _pnr_build(name, kw, calibration.float() if cnn
+                               else calibration)
+        feeds = {"f32": f32, "u8": u8}
+        if cnn:   # its uint8 feed is ImageNet-normalised, as in egot2x
+            feeds["f32_normalised"] = torch.from_numpy(
+                normalize_frames(frames_u8)).cuda()
+        for fn in _counters().values():
+            fn.launches = 0
+        with torch.no_grad():
+            model(f32)                                       # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(PNR_REPEATS):
+                out = model(f32)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / PNR_REPEATS * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            other = {f: model(x) for f, x in feeds.items() if f != "f32"}
+            tokens = (model(f32, middle=True)
+                      if name == "KeyframeLocalizationResNet" else None)
+            torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in _counters().items()}
+        forwards = PNR_REPEATS + 1 + len(other) + (tokens is not None)
+        expect = _expected(forwards, stem_pool_2d=1 if cnn else 0)
+        for k in total:
+            total[k] += counts[k]
+        label = name + (" no_temp_pool" if kw.get("no_temp_pool") else "")
+        if counts != expect:
+            fail(f"hoi {label}: launches {counts}, expected {expect}")
+        busy, by_category = _busy_share(lambda: model(f32))
+
+        outs = _pnr_outputs(name, out)
+        shapes = {"keyframe": (PNR_CLIPS, PNR_FRAMES),
+                  "state": (PNR_CLIPS, 2)}
+        for key, v in outs.items():
+            _check_finite(f"hoi {label}", {key: v}, shapes[key])
+        if sorted(outs) != sorted(answers):
+            fail(f"hoi {label}: answers {sorted(outs)}")
+        if tokens is not None:
+            _check_finite(f"hoi {label}", {"tokens": tokens},
+                          (PNR_CLIPS, PNR_FRAMES, 8192))
+        # the feeds: uint8 = f32 [0, 255] (cast only), KeyframeCnnLSTM's
+        # uint8 = the ImageNet-normalised f32 feed
+        ref_feed = "f32_normalised" if cnn else "f32"
+        ref = outs if ref_feed == "f32" else _pnr_outputs(name,
+                                                          other[ref_feed])
+        feed_errs = _check_close(f"hoi {label}: uint8 vs {ref_feed} feed",
+                                 _pnr_outputs(name, other["u8"]), ref)
+
+        cpu = _cpu_twin(name, model, **kw)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            x = f32[:PNR_CPU_CLIPS].cpu()
+            want = _pnr_outputs(name, cpu(x))
+            want_tokens = (cpu(x, middle=True) if tokens is not None
+                           else None)
+        cpu_s = time.perf_counter() - t0
+        errs = _check_close(f"hoi {label}, clips 0-{PNR_CPU_CLIPS - 1} "
+                            "card vs CPU",
+                            {k: v[:PNR_CPU_CLIPS] for k, v in outs.items()},
+                            want)
+        token_err = None
+        if tokens is not None:
+            gap = (tokens[:PNR_CPU_CLIPS].cpu() - want_tokens).norm(dim=-1)
+            token_err = float((gap / want_tokens.norm(dim=-1)).max())
+            if not token_err <= TOKEN_TOL:
+                fail(f"hoi {label}: tokens {token_err} of their norm off "
+                     "the CPU's")
+        got_m, want_m = (_pnr_metrics(name, outs, labels),
+                         _pnr_metrics(name, want, labels))
+        if got_m != want_m:
+            fail(f"hoi {label}: metrics {got_m} vs the CPU's {want_m}")
+        phase("hoi", card=card, model=name, **{
+                  k: v for k, v in kw.items() if k != "nonlocal_cfg"},
+              nonlocal_cfg=kw.get("nonlocal_cfg"), clips=PNR_CLIPS,
+              frames=PNR_FRAMES, crop=PNR_CROP, feed="raw [0, 255] f32",
+              ms_per_batch=ms, clips_per_s=PNR_CLIPS * 1e3 / ms,
+              peak_mem_gib=peak, device_busy_share=busy,
+              device_ms_by_category=by_category,
+              out_shapes={k: list(v.shape) for k, v in outs.items()},
+              token_shape=None if tokens is None else list(tokens.shape),
+              max_abs_err_cpu=errs, token_err_of_norm=token_err,
+              max_abs_err_feeds=feed_errs, tol=LOGIT_TOL,
+              cpu_clips=PNR_CPU_CLIPS, cpu_seconds=cpu_s,
+              metrics=got_m, metrics_cpu=want_m, launches=counts,
+              expected_launches=expect,
+              clip0_card={k: v[0].tolist() for k, v in outs.items()})
+        del model, cpu, out, other, tokens
+        torch.cuda.empty_cache()
+    if total["stem_pool_2d"] == 0:
+        fail("hoi: kernel 1 was never launched on the path")
+    return total, rows
+
+
 def _line_row(name, row, counts, replaces, route="cuda",
               source="egot2x_torch/csrc/stem_pool.cu"):
     return dict(name=name, route=route, source=source, replaces=replaces,
@@ -2724,6 +3184,8 @@ def main():
     mt_counts = egot2g_phase(card)
     crop_row = data_phase()
     cli_counts = cli_phase(card)
+    baseline_counts = ttm_baselines_phase(card, next(_requests()))
+    hoi_counts, pnr_rows = hoi_phase(card)
     float_stem, int8_stem = ("egot2x/ops/pallas_stem.py:251",
                              "egot2x/ops/pallas_stem.py:373")
     # each kernel at its main path's input type: f32 (float slice), bf16
@@ -2756,6 +3218,10 @@ def main():
             "shapes", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
         launches=cli_counts["crop_resize"]))
+    # kernel 1 at the PNR crop (KeyframeCnnLSTM: 256 frames of 225^2)
+    line[0]["pnr_225"] = {dtype: {k: r[k] for k in (
+        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")} for dtype, r in pnr_rows.items()}
     for row in line:   # the training paths' launches, beside the serving's
         row["train_launches"] = {path: counts[row["name"]]
                                  for path, counts in train_counts.items()}
@@ -2764,6 +3230,8 @@ def main():
         row["egot2g_launches"] = {path: counts[row["name"]]
                                   for path, counts in mt_counts.items()}
         row["cli_launches"] = cli_counts[row["name"]]
+        row["ttm_baselines_launches"] = baseline_counts[row["name"]]
+        row["hoi_launches"] = hoi_counts[row["name"]]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

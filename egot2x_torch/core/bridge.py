@@ -19,6 +19,9 @@ The layouts differ as follows:
     direction are torch LSTM's ``weight_ih_l{k}[_reverse]`` (4H, D) and
     ``weight_hh_l{k}[_reverse]`` (4H, H), biases as they are;
   * ResNetSE's attention Dense layers are 1x1 Conv1d here, (out, in, 1);
+  * the ResNet3D models (``nn/resnet3d.py``, ``models/pnr.py``) and the
+    TTM baselines' heads have the JAX package's names, so each module's
+    path is its JAX path with "/" for ".";
   * the EgoT2-g prompt models hold their prompt core (``ln``,
     ``task_embed``, ``embedding``, ``fc``, the encoder and the decoder)
     at their top, as the reference does, and the JAX package under
@@ -43,20 +46,23 @@ from torch import nn
 
 from egot2x_torch.models.asd import TalkNetBackbone, TalkNetWithHeads
 from egot2x_torch.models.lam import BaselineLSTM
+from egot2x_torch.models.pnr import KeyframeCnnLSTM, _PnrResNet
 from egot2x_torch.models.ttm import TTMBaselineLSTM
 from egot2x_torch.nn.common import (MultiHeadAttention, TransformerDecoder,
                                     TransformerEncoder)
 from egot2x_torch.nn.lstm import BiLSTM
 from egot2x_torch.nn.quant import SCALE_BUFFERS
 from egot2x_torch.nn.resnet2d import BasicBlock2D, ResNet2D
+from egot2x_torch.nn.resnet3d import ResNet3D
 from egot2x_torch.nn.resnet_se import ResNetSE
 from egot2x_torch.nn.talknet import (AVSRResNetLayer, CrossAttentionLayer,
                                      GlobalLayerNorm, TalkNetModel,
                                      VisualFrontend)
 from egot2x_torch.tasks.asd_2loader import _TranslatorWithHead
 from egot2x_torch.translate.egot2g import STREAM_IDS, _HHIPromptBase
-from egot2x_torch.translate.egot2s_hhi import (_FrameBaseline,
-                                               _MFTransformerCore)
+from egot2x_torch.translate.egot2s_hhi import (FROZEN_KEYS, _FrameBaseline,
+                                               _MFTransformerCore,
+                                               _TTMBaseline)
 
 # (torch key, [(collection, jax path)], layout)
 Rule = Tuple[str, List[Tuple[str, Tuple[str, ...]]], str]
@@ -150,12 +156,15 @@ def _scale_rules(module: nn.Module, t: str, j: str) -> List[Rule]:
             for name in SCALE_BUFFERS if name in own]
 
 
-def _resnet18(t: str, j: str) -> Iterator[Tuple[str, str]]:
+def _resnet2d(t: str, j: str, stage_sizes=(2, 2, 2, 2)
+              ) -> Iterator[Tuple[str, str]]:
+    """A ResNet2D of ``stage_sizes`` (ResNet-18's by default); its head,
+    where it has one."""
     yield from ((t.rstrip("."), j), (f"{t}conv1", f"{j}/conv1"),
                 (f"{t}bn1", f"{j}/bn1"), (f"{t}fc", f"{j}/fc"),
                 (f"{t}fc2", f"{j}/fc2"))
-    for stage in range(1, 5):
-        for b in range(2):
+    for stage, blocks in enumerate(stage_sizes, start=1):
+        for b in range(blocks):
             tp, jp = f"{t}layer{stage}.{b}", f"{j}/layer{stage}_{b}"
             yield tp, jp
             for leaf in ("conv1", "bn1", "conv2", "bn2"):
@@ -180,6 +189,18 @@ def _resnet_se(t: str, j: str) -> Iterator[Tuple[str, str]]:
             yield f"{tp}.downsample.1", f"{jp}/downsample_bn"
 
 
+def _mirror(model: nn.Module, skip=()) -> Iterator[Tuple[str, str]]:
+    """Every module of ``model`` that holds leaves of its own, at the JAX
+    path that is its port path with "/" for "." (the ResNet3D models and
+    the baselines' heads are named as in the JAX package), but those
+    under the top-level names ``skip``."""
+    for name, m in model.named_modules():
+        if name.split(".", 1)[0] in skip:
+            continue
+        if any(True for _ in m.parameters(recurse=False)):
+            yield name, name.replace(".", "/")
+
+
 def _pointwise_rules(t: str, j: str) -> List[Rule]:
     """ResNetSE's attention convs, Dense layers in the JAX package."""
     rules = []
@@ -195,7 +216,7 @@ def _stage1_head(trunk: str) -> Iterator[Tuple[str, str]]:
     """A LAM or TTM Stage-I classifier's ResNet-18 (its attribute
     ``trunk``), BiLSTM and head; the JAX model holds the first two under
     ``trunk/``."""
-    yield from _resnet18(f"{trunk}.", f"trunk/{trunk}")
+    yield from _resnet2d(f"{trunk}.", f"trunk/{trunk}")
     yield from (("lstm", "trunk/lstm"), ("last_layer1", "last_layer1"),
                 ("last_layer2", "last_layer2"))
 
@@ -254,10 +275,10 @@ def _talknet(t: str, j: str) -> Iterator[Tuple[str, str]]:
 def _trunks(model: nn.Module) -> Iterator[Tuple[str, str]]:
     """The frozen backbones a translator holds."""
     if hasattr(model, "lam_model"):
-        yield from _resnet18("lam_model.base_model.",
+        yield from _resnet2d("lam_model.base_model.",
                              "lam_model/trunk/base_model")
     if hasattr(model, "ttm_model"):
-        yield from _resnet18("ttm_model.video_encoder.",
+        yield from _resnet2d("ttm_model.video_encoder.",
                              "ttm_model/trunk/video_encoder")
     if hasattr(model, "asd_model"):
         yield from _talknet("asd_model.", "asd_model")
@@ -321,10 +342,20 @@ def bridge_rules(model: nn.Module) -> List[Rule]:
     elif isinstance(model, _FrameBaseline):
         pairs = [*_trunks(model), ("fc1", "fc1")]
         extra = []
+    elif isinstance(model, _TTMBaseline):
+        pairs = [*_trunks(model), *_mirror(model, skip=FROZEN_KEYS)]
+        extra = []
+    elif isinstance(model, (_PnrResNet, ResNet3D)):
+        pairs, extra = _mirror(model), []
+    elif isinstance(model, KeyframeCnnLSTM):
+        pairs = [*_resnet2d("backbone.", "backbone",
+                            model.backbone.stage_sizes),
+                 ("lstm", "lstm"), ("regressor", "regressor")]
+        extra = []
     elif isinstance(model, TalkNetBackbone):
         pairs, extra = _talknet("", "talknet"), []
     elif isinstance(model, ResNet2D):
-        pairs, extra = _resnet18("", ""), []
+        pairs, extra = _resnet2d("", "", model.stage_sizes), []
     elif isinstance(model, TalkNetModel):
         pairs, extra = _talknet("", ""), []
     elif isinstance(model, TransformerEncoder):

@@ -64,8 +64,10 @@ def build_model(name: str, device=None, **kwargs) -> torch.nn.Module:
     output feeds). ``kwargs`` go to the model: widths, ``dtype`` (the
     compute dtype; parameters stay f32) and, for the 3-task translator,
     ``quant`` and ``fuse_stems``; the EgoT2-g prompt models take
-    ``vocab_size``. Weights are the module defaults: load
-    real ones with :func:`egot2x_torch.core.bridge.load_jax_variables` or
+    ``vocab_size``; the PNR/OSCC models ``arch``, ``crop_size``,
+    ``nonlocal_cfg`` (``nn/resnet3d.py::resolve_nonlocal``). Weights are
+    the module defaults: load real ones with
+    :func:`egot2x_torch.core.bridge.load_jax_variables` or
     ``load_state_dict``; a ``quant`` model then needs
     :func:`egot2x_torch.nn.quant.calibrate` (or calibrated scales in what
     it loads) before int8 inference, and raises without them."""
@@ -77,6 +79,7 @@ def register_models() -> None:
     """Import every module that registers a model."""
     import egot2x_torch.models.asd  # noqa: F401
     import egot2x_torch.models.lam  # noqa: F401
+    import egot2x_torch.models.pnr  # noqa: F401
     import egot2x_torch.models.ttm  # noqa: F401
     import egot2x_torch.translate.egot2g  # noqa: F401
     import egot2x_torch.translate.egot2s_hhi  # noqa: F401
@@ -84,9 +87,12 @@ def register_models() -> None:
 
 def place(model: torch.nn.Module, device=None) -> torch.nn.Module:
     """``model`` on ``device`` (:func:`resolve_device`), its 4-D weights in
-    ``torch.channels_last``, in eval mode."""
+    ``torch.channels_last`` and the 3D trunks' (``channels_last`` convs,
+    ``nn/resnet3d.py``) in ``torch.channels_last_3d``, in eval mode."""
     model = model.to(resolve_device(device))
     for m in model.modules():
         if isinstance(m, torch.nn.Conv2d):
             m.to(memory_format=torch.channels_last)
+        elif getattr(m, "channels_last", False):
+            m.to(memory_format=torch.channels_last_3d)
     return model.eval()

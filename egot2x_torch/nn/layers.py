@@ -53,6 +53,11 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, _at(self.weight, x), _at(self.bias, x))
 
 
+class Conv3d(nn.Conv3d):
+    def forward(self, x):
+        return self._conv_forward(x, _at(self.weight, x), _at(self.bias, x))
+
+
 class PReLU(nn.PReLU):
     def forward(self, x):
         return F.prelu(x, _at(self.weight, x))

@@ -10,6 +10,9 @@ and torch's packed layout, stored transposed: the weight bridge takes its
 ``weight_ih_l{k}[_reverse]`` (4H, D) and ``weight_hh_l{k}[_reverse]``
 (4H, H), and keeps ``b_ih`` and ``b_hh`` apart.
 
+``KeyframeCnnLSTM`` (HOI) runs one layer of 512 over its 512-d frame
+features: ``BiLSTM(512, num_layers=1, input_size=512)``.
+
 The LSTM computes in its parameters' type (f32) whatever the model's
 compute dtype (its output is cast back), since cuDNN's takes no mixed
 types.
@@ -21,10 +24,12 @@ from torch import nn
 
 
 class BiLSTM(nn.LSTM):
-    """(B, T, hidden) -> (B, T, 2 hidden)."""
+    """(B, T, input_size) -> (B, T, 2 hidden); ``input_size`` defaults to
+    ``hidden``."""
 
-    def __init__(self, hidden: int = 256):
-        super().__init__(hidden, hidden, num_layers=2,
+    def __init__(self, hidden: int = 256, num_layers: int = 2,
+                 input_size: int = None):
+        super().__init__(input_size or hidden, hidden, num_layers=num_layers,
                          bidirectional=True, batch_first=True)
 
     def forward(self, x):

@@ -1,10 +1,14 @@
-"""2-D ResNet-18 frame encoder: float inference and int8 static PTQ.
+"""2-D ResNet frame encoder: float inference and int8 static PTQ.
 
-Counterpart of ``egot2x/nn/resnet2d.py``: a torchvision-style ResNet-18
-whose head is ``fc`` 512->1000 followed by ``fc2`` 1000->num_classes with
-no activation between them (the reference LAM/TTM backbones set 256).
-Module names follow the reference torch model (``conv1``, ``bn1``,
-``layer{1..4}.{0,1}``, ``downsample.{0,1}``, ``fc``, ``fc2``).
+Counterpart of ``egot2x/nn/resnet2d.py``: a torchvision-style ResNet of
+basic blocks, ``stage_sizes`` blocks a stage (ResNet-18's (2, 2, 2, 2) by
+default; ``KeyframeCnnLSTM`` takes (3, 4, 6, 3)), whose head is ``fc``
+512->1000 followed by ``fc2`` 1000->num_classes with no activation
+between them (the reference LAM/TTM backbones set 256). With
+``features_only=True`` the model has no head and returns the pooled 512-d
+feature, as the JAX model's ``features_only`` call creates none. Module
+names follow the reference torch model (``conv1``, ``bn1``,
+``layer{1..4}.{i}``, ``downsample.{0,1}``, ``fc``, ``fc2``).
 
 Frames enter NHWC, the JAX package's layout. The stem (conv1 + bn1 + ReLU
 + 3x3/2 max-pool) runs through a fused stem kernel, whose NHWC output is
@@ -107,24 +111,32 @@ class BasicBlock2D(nn.Module):
 
 
 class ResNet2D(nn.Module):
-    """ResNet-18 (stages 2, 2, 2, 2) with the reference's fc/fc2 head."""
+    """ResNet of basic blocks (ResNet-18's stages by default) with the
+    reference's fc/fc2 head, or none with ``features_only``."""
 
     def __init__(self, num_classes: int = 3, quant: bool = False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, stage_sizes=(2, 2, 2, 2),
+                 features_only: bool = False):
         super().__init__()
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64, eps=1e-5)
+        self.stage_sizes = tuple(stage_sizes)
         inplanes = 64
-        for stage, planes in enumerate((64, 128, 256, 512)):
-            stride = 1 if stage == 0 else 2
-            last = stage == 3
-            setattr(self, f"layer{stage + 1}", nn.Sequential(
-                BasicBlock2D(inplanes, planes, stride, quant, quant, dtype),
-                BasicBlock2D(planes, planes, 1, quant, quant and not last,
-                             dtype)))
-            inplanes = planes
-        self.fc = Linear(512, 1000)
-        self.fc2 = Linear(1000, num_classes)
+        for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512),
+                                                     self.stage_sizes)):
+            layer = []
+            for b in range(blocks):
+                stride = 2 if stage > 0 and b == 0 else 1
+                # int8 chains between blocks; the last one emits float
+                last = stage == len(self.stage_sizes) - 1 and b == blocks - 1
+                layer.append(BasicBlock2D(inplanes, planes, stride, quant,
+                                          quant and not last, dtype))
+                inplanes = planes
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*layer))
+        self.features_only = features_only
+        if not features_only:
+            self.fc = Linear(512, 1000)
+            self.fc2 = Linear(1000, num_classes)
         self.quant = quant
         if quant:
             self.register_buffer("stem_act_max", torch.zeros(()))
@@ -136,7 +148,8 @@ class ResNet2D(nn.Module):
 
     def forward(self, x, stem_in=None):
         """x (N, H, W, 3) NHWC, f32 normalized or uint8 -> (N, num_classes)
-        in the compute dtype. ``stem_in``: (int8 pooled stem map, step) of
+        in the compute dtype, or the pooled (N, 512) with
+        ``features_only``. ``stem_in``: (int8 pooled stem map, step) of
         the int8 path, computed outside; ``x`` is then not read."""
         if self.quant and not self.calibrating:
             y, s = stem_in if stem_in is not None else self._stem_int8(x)
@@ -157,7 +170,8 @@ class ResNet2D(nn.Module):
                 y = y.permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
             for stage in self._stages():
                 y = stage(y)
-        return self.fc2(self.fc(y.mean((2, 3))))
+        y = y.mean((2, 3))
+        return y if self.features_only else self.fc2(self.fc(y))
 
     def _stem_batch_stats(self, x):
         """The training stem on NHWC frames: conv, BN on batch statistics,

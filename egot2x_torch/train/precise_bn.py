@@ -25,13 +25,19 @@ from torch import nn
 
 
 def compute_precise_bn_stats(model: nn.Module, batches: Iterable,
-                             num_batches: int = 200) -> int:
+                             num_batches: int = 200, bns=None) -> int:
     """Set every BatchNorm's running mean and variance in ``model`` to the
     average of its batch statistics over the first ``num_batches`` of
     ``batches`` (tuples of the model's positional inputs); returns the
-    number of batches used (0 leaves the statistics as they were)."""
-    bns = [m for m in model.modules()
-           if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    number of batches used (0 leaves the statistics as they were).
+    ``bns``: only these BatchNorm modules of ``model``, the others staying
+    in eval mode (on one batch, each then takes the statistics of what the
+    model in eval mode hands it, since a layer set to its batch's
+    statistics normalises that batch as it did in training mode)."""
+    if bns is None:
+        bns = [m for m in model.modules()
+               if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    bns = list(bns)
     if not bns:
         return 0
     was_training = model.training

@@ -15,6 +15,14 @@ Counterpart of ``egot2x/translate/egot2s_hhi.py``:
   * ASD baselines ``FinetuneASD``, ``LAM2ASD`` and ``TTM2ASD``: one frozen
     backbone's per-frame features through ``fc1`` 256 -> D and a ReLU,
     (B*T, D).
+  * TTM baselines ``FinetuneTTM``, ``LAM2TTM`` and ``ASD2TTM``: one frozen
+    backbone's per-frame features averaged over T, then ``head`` (``fc1``
+    256 -> D, ReLU, ``fc2`` D -> ``hidden_dim2``, ReLU, ``fc3`` -> 2);
+    ``TaskFusionLFLinear3Task`` late fusion: the three backbones' mean
+    features, each through ``proj_ttm``, ``proj_lam``, ``proj_asd``
+    256 -> D, joined in that order, ``ln`` over 3 D, ``fc1`` 3 D ->
+    ``hidden_dim2``, ReLU, ``fc2`` -> 2. All take the translators' four
+    inputs and return (B, 2) logits.
 
 Task ids are fixed per stream (ttm 0, lam 1, asd 2). Parameter names are
 the reference torch model's (``lam_model.base_model``,
@@ -43,9 +51,12 @@ activations in the backward (``torch.utils.checkpoint``, non-reentrant)
 under ``nofreeze`` only, as the JAX package's ``nn.remat`` does; without
 ``nofreeze`` it changes nothing. ``dropout`` is the encoder's rate; the
 PE's is 0.1 whatever it is, as in the JAX package. The ASD baselines
-(``FinetuneASD``, ``LAM2ASD``, ``TTM2ASD``) take these arguments and keep
-their backbones under ``no_grad`` whatever they say, as the JAX package
-``stop_gradient``s them.
+(``FinetuneASD``, ``LAM2ASD``, ``TTM2ASD``) and the TTM baselines take
+these arguments and keep their backbones under ``no_grad`` whatever they
+say, as the JAX package ``stop_gradient``s them (it does not use
+``_maybe_freeze`` there). The baselines have no int8 path: the JAX
+package builds their backbones float whatever ``quant`` says, and here
+``quant=True`` raises.
 """
 
 from __future__ import annotations
@@ -291,3 +302,127 @@ class TTM2ASD(_FrameBaseline):
     def features(self, video, video_asd, audio, audio_asd):
         return self.ttm_model(normalize_u8_frames(video, self.compute_dtype),
                               audio)
+
+
+class _TTMBaseline(nn.Module):
+    """Frozen backbones' mean per-frame features -> (B, 2) logits. The
+    fusion widths (``num_heads``, ``num_layers``) and the training options
+    (``dropout``, ``nofreeze``, ``remat``) are taken and unused, as in the
+    JAX package: the backbones stay frozen. ``hidden_dim2`` is the MLP's
+    second width (512 by default)."""
+
+    def __init__(self, hidden_dim: int = 256, num_heads: int = 4,
+                 num_layers: int = 3, dtype=torch.float32,
+                 dropout: float = 0.1, nofreeze: bool = False,
+                 remat: bool = False, hidden_dim2: int = 512,
+                 quant: bool = False):
+        super().__init__()
+        if quant:
+            raise ValueError(f"{type(self).__name__} has no int8 path: the "
+                             "JAX package runs its backbones float")
+        self.compute_dtype = dtype
+        self.hidden_dim, self.hidden_dim2 = hidden_dim, hidden_dim2
+
+    def features(self, video, video_asd, audio, audio_asd):
+        """{stream: (B, 256) mean per-frame features} of the frozen
+        backbones."""
+        raise NotImplementedError
+
+    def classify(self, feats):
+        raise NotImplementedError
+
+    def forward(self, video, video_asd, audio, audio_asd):
+        """Inputs as the 3-task translator's -> (B, 2) logits."""
+        with torch.no_grad():   # the frozen backbones
+            feats = self.features(video, video_asd, audio, audio_asd)
+        return self.classify(feats)
+
+    def _rgb(self, video):
+        return normalize_u8_frames(video, self.compute_dtype)   # once
+
+
+class _MLPHead(nn.Module):
+    def __init__(self, hidden_dim: int, hidden_dim2: int, out: int = 2):
+        super().__init__()
+        self.fc1 = Linear(256, hidden_dim)
+        self.fc2 = Linear(hidden_dim, hidden_dim2)
+        self.fc3 = Linear(hidden_dim2, out)
+
+    def forward(self, x):
+        x = torch.relu(self.fc2(torch.relu(self.fc1(x))))
+        return self.fc3(x)
+
+
+class _SingleBackboneTTM(_TTMBaseline):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.head = _MLPHead(self.hidden_dim, self.hidden_dim2)
+
+    def classify(self, feats):
+        (x,) = feats.values()
+        return self.head(x)
+
+
+@MODEL_REGISTRY.register(name="FinetuneTTM")
+class FinetuneTTM(_SingleBackboneTTM):
+    """Frozen TTM trunk's mean per-frame token -> MLP."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.ttm_model = TTMBackbone(dtype=self.compute_dtype)
+
+    def features(self, video, video_asd, audio, audio_asd):
+        return {"ttm": self.ttm_model(self._rgb(video), audio).mean(dim=1)}
+
+
+@MODEL_REGISTRY.register(name="LAM2TTM")
+class LAM2TTM(_SingleBackboneTTM):
+    """Frozen LAM trunk's mean per-frame token -> MLP."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.lam_model = LAMBackbone(dtype=self.compute_dtype)
+
+    def features(self, video, video_asd, audio, audio_asd):
+        return {"lam": self.lam_model(self._rgb(video)).mean(dim=1)}
+
+
+@MODEL_REGISTRY.register(name="ASD2TTM")
+class ASD2TTM(_SingleBackboneTTM):
+    """Frozen TalkNet's mean per-frame AV feature -> MLP."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.asd_model = FrozenTalkNet(dtype=self.compute_dtype)
+
+    def features(self, video, video_asd, audio, audio_asd):
+        return {"asd": self.asd_model(audio_asd, video_asd)[0].mean(dim=1)}
+
+
+@MODEL_REGISTRY.register(name="TaskFusionLFLinear3Task")
+class TaskFusionLFLinear3Task(_TTMBaseline):
+    """Late fusion of the three frozen backbones' mean features: projected,
+    joined (ttm, lam, asd), LayerNorm, MLP -> (B, 2)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        d = self.hidden_dim
+        self.lam_model = LAMBackbone(dtype=self.compute_dtype)
+        self.ttm_model = TTMBackbone(dtype=self.compute_dtype)
+        self.asd_model = FrozenTalkNet(dtype=self.compute_dtype)
+        for stream in ("ttm", "lam", "asd"):
+            setattr(self, f"proj_{stream}", Linear(256, d))
+        self.ln = layer_norm(3 * d)
+        self.fc1 = Linear(3 * d, self.hidden_dim2)
+        self.fc2 = Linear(self.hidden_dim2, 2)
+
+    def features(self, video, video_asd, audio, audio_asd):
+        video = self._rgb(video)
+        return {"ttm": self.ttm_model(video, audio).mean(dim=1),
+                "lam": self.lam_model(video).mean(dim=1),
+                "asd": self.asd_model(audio_asd, video_asd)[0].mean(dim=1)}
+
+    def classify(self, feats):
+        x = torch.cat([getattr(self, f"proj_{s}")(feats[s])
+                       for s in ("ttm", "lam", "asd")], dim=1)
+        return self.fc2(torch.relu(self.fc1(self.ln(x))))

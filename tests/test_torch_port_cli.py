@@ -112,8 +112,10 @@ def test_ttm_two_loader_checkpoint_round_trip(workdir, monkeypatch):
 def test_what_is_not_ported_raises_by_name(workdir):
     with pytest.raises(NotImplementedError, match="pnr_train"):
         from egot2x_torch.cli import pnr_train  # noqa: F401
-    with pytest.raises(NotImplementedError, match="FinetuneTTM"):
-        run_ttm.main(["--model", "FinetuneTTM", "--synthetic",
+    with pytest.raises(NotImplementedError,
+                       match="TaskFusionMFTransformer3TaskDropout"):
+        run_ttm.main(["--model", "TaskFusionMFTransformer3TaskDropout",
+                      "--synthetic",
                       "--fast_dev_run", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="model_parallel"):
         run_lam.main(["--model_parallel", "--synthetic", "--fast_dev_run",

@@ -1001,3 +1001,145 @@ def test_decoder_on_card_matches_cpu(cuda):
     assert flash.flash_attention.launches == before
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got_w.cpu(), want_w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_pool_2d_kernel_at_the_pnr_crop(cuda, dtype):
+    """The 2D stem at the PNR crop, 225^2 raw 0-255 frames (as
+    ``KeyframeCnnLSTM`` is fed): odd conv (113^2) and pooled (57^2) edges,
+    whose last tile is partial. f32 against the plain version in f64 and
+    bf16 against it in f32, as ``test_stem_kernels_take_raw_frames``
+    holds raw frames; f32 also within 2^-20 of each output's sum of term
+    magnitudes (the f32 conv's rounding grows with it: on raw frames the
+    sums reach ~1,200 a window, and cuDNN's own f32 conv misses the bare
+    1e-4 at 256 such frames; chip_smoke.py's hoi phase prints both)."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(0, 256, (4, 225, 225, 3)).astype(
+        np.float32)).to(cuda).to(dtype)
+    weight, scale, bias = _params(rng, (64, 3, 7, 7), cuda)
+    weight = weight * (10.0 / np.sqrt(147))
+    before = stem.stem_pool_2d.launches
+    out = stem.stem_pool_2d(x, weight, scale, bias)
+    torch.cuda.synchronize()
+    assert stem.stem_pool_2d.launches == before + 1
+    assert out.shape == (4, 57, 57, 64)
+    if dtype == torch.bfloat16:
+        ref = stem.stem_pool_2d_plain(x.float(), weight, scale, bias)
+        torch.testing.assert_close(out.float(), ref, **TOL[dtype])
+        return
+    ref = stem.stem_pool_2d_plain(x.double(), weight.double(),
+                                  scale.double(), bias.double())
+    terms = torch.nn.functional.conv2d(
+        x.double().abs().permute(0, 3, 1, 2), weight.double().abs(),
+        stride=2, padding=3) * scale.double().abs()[:, None, None]
+    terms = torch.nn.functional.max_pool2d(terms, 3, 2, 1).permute(0, 2, 3, 1)
+    err = (out.double() - ref).abs()
+    assert bool((err <= 1e-4 + 1e-4 * ref.abs() + 2.0 ** -20 * terms).all())
+
+
+def _seeded_on_both(name, cuda, calibration, **kwargs):
+    """``name`` on the card and on the CPU with the bridge's seeded weights
+    and, where the model takes raw pixels, the statistics of its stem's BN
+    (and of its dot_product Nonlocals' BNs) from ``calibration`` by precise
+    BN on the CPU (tests/test_torch_port_resnet3d.py says why)."""
+    from egot2x_torch.core import bridge
+    from egot2x_torch.core.registry import build_model
+    from egot2x_torch.nn.resnet3d import Nonlocal
+    from egot2x_torch.train.precise_bn import compute_precise_bn_stats
+
+    cpu = build_model(name, device="cpu", **kwargs)
+    bridge.load_jax_variables(cpu, bridge.random_jax_variables(cpu, 5))
+    if calibration is not None:
+        stem_bn = (cpu.backbone.bn1 if hasattr(cpu, "backbone")
+                   else cpu.trunk.s1.bn)
+        bns = [stem_bn] + [m.bn for m in cpu.modules()
+                           if isinstance(m, Nonlocal)
+                           and m.instantiation == "dot_product"]
+        compute_precise_bn_stats(cpu, [(calibration,)], 1, bns=bns)
+    card = build_model(name, device=cuda, **kwargs)
+    card.load_state_dict(cpu.state_dict())
+    return card, cpu
+
+
+def test_cnn_lstm_stem_at_225_on_card_matches_cpu(cuda):
+    """``KeyframeCnnLSTM`` on 2 clips x 4 frames of 225^2 raw pixels: one
+    stem kernel launch covers the 8 frames; the stem's output and the
+    scores against the CPU (plain stem), 1e-4 relative to the map's and
+    1e-3 (1 + |score|)."""
+    rng = np.random.default_rng(8)
+    frames = rng.integers(0, 256, (3, 2, 4, 225, 225, 3)).astype(np.float32)
+    card, cpu = _seeded_on_both("KeyframeCnnLSTM", cuda,
+                                torch.from_numpy(frames[2]))
+    x = torch.from_numpy(frames[0])
+    stems = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        model.backbone.layer1.register_forward_pre_hook(
+            lambda m, a, name=name: stems.__setitem__(name, a[0]))
+    before = stem.stem_pool_2d.launches
+    with torch.no_grad():
+        got = card(x.to(cuda))
+        want = cpu(x)
+    torch.cuda.synchronize()
+    assert stem.stem_pool_2d.launches == before + 1
+    assert stems["card"].shape == (8, 64, 57, 57)
+    err = (stems["card"].cpu() - stems["cpu"]).abs().max()
+    assert err <= 1e-4 * stems["cpu"].abs().max()
+    assert got.shape == (2, 4)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["KeyframeLocalizationResNet",
+                                  "StateChangeClsResNet", "DualHeadResNet"])
+def test_pnr_model_on_card_matches_cpu(cuda, name):
+    """The ResNet3D-50 PNR models at crop 65 (2 clips x 4 frames, raw
+    uint8; the keyframe model with two dot_product Nonlocals) on the card
+    (channels_last_3d) against the CPU: 1e-3 (1 + |logit|); the uint8 and
+    the f32 [0, 255] feed agree on the card; no stem kernel launch (the
+    video stem is the library's)."""
+    from egot2x_torch.nn.resnet3d import resolve_nonlocal
+
+    kwargs = dict(crop_size=65)
+    if name == "KeyframeLocalizationResNet":
+        kwargs["nonlocal_cfg"] = resolve_nonlocal([[[]], [[1]], [[1]], [[]]])
+    rng = np.random.default_rng(9)
+    frames = rng.integers(0, 256, (2, 2, 4, 65, 65, 3)).astype(np.uint8)
+    card, cpu = _seeded_on_both(name, cuda, torch.from_numpy(frames[1]),
+                                **kwargs)
+    x = torch.from_numpy(frames[0])
+    before = (stem.stem_pool_2d.launches, stem.stem_pool_3d.launches)
+    with torch.no_grad():
+        got, got_f32, want = (card(x.to(cuda)), card(x.to(cuda).float()),
+                              cpu(x))
+    torch.cuda.synchronize()
+    assert (stem.stem_pool_2d.launches, stem.stem_pool_3d.launches) == before
+    for g, f, w in zip(*(v if isinstance(v, tuple) else (v,)
+                         for v in (got, got_f32, want))):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-3)
+        torch.testing.assert_close(f, g, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name, launches", [
+    ("FinetuneTTM", (1, 0)), ("LAM2TTM", (1, 0)), ("ASD2TTM", (0, 1)),
+    ("TaskFusionLFLinear3Task", (2, 1))])
+def test_ttm_baseline_on_card_matches_cpu(cuda, name, launches):
+    """Each TTM baseline on 2 clips x 8 frames (RGB 64^2 uint8, faces 48^2,
+    MFCC): its stem launches a forward, and the logits against the CPU,
+    1e-3 (1 + |logit|)."""
+    rng = np.random.default_rng(10)
+    inputs = (torch.from_numpy(rng.integers(0, 256, (2, 8, 64, 64, 3)).astype(
+                  np.uint8)),
+              torch.from_numpy(rng.uniform(0, 255, (2, 8, 48, 48)).astype(
+                  np.float32)),
+              torch.zeros(2, 8 * 16000 // 30),
+              torch.from_numpy(rng.standard_normal((2, 32, 13)).astype(
+                  np.float32)))
+    card, cpu = _seeded_on_both(name, cuda, None)
+    before = (stem.stem_pool_2d.launches, stem.stem_pool_3d.launches)
+    with torch.no_grad():
+        got = card(*(v.to(cuda) for v in inputs))
+        want = cpu(*inputs)
+    torch.cuda.synchronize()
+    assert (stem.stem_pool_2d.launches - before[0],
+            stem.stem_pool_3d.launches - before[1]) == launches
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
