@@ -192,9 +192,25 @@ then the TTM baselines and HOI Stage-I inference:
               the PNR metrics of those clips equal, ms a batch, clips/s,
               peak memory and the device's busy share.
 
+then HOI Stage-II inference:
+ 22. hoi_ts  ts_pnr and ts_oscc (``TaskFusionMFTransformer3TaskDropout`` at
+              configs/pnr/ts_{pnr,oscc}.yaml's widths: D 128, 6 layers, 16
+              logits; D 256, 5 layers, 2 logits) at tools/bench_hoi.py's
+              geometry (batch 8, 16 raw frames of 225^2, SlowFast-R50
+              pathways of 8 + 32 frames at 224^2, alpha 4: 48 tokens), f32
+              with TF32 off and bf16, the PNR and OSCC stems' BNs fitted by
+              precise BN; then ``MultiTaskSlowFast`` at the AR task's build
+              (alpha 8, 8 clips of 32 frames). No kernel of the port on this
+              path (0 launches, exact); finite outputs of the expected
+              shapes, uint8 feed equal to f32, clip 0 against the port's CPU
+              forward (f32), bf16 logits within 1 - cosine 1e-3 and max
+              |delta| 0.075 of f32's; ms a batch, clips/s, peak memory and
+              the busy share.
+
 Then one JSON line of every kernel (with its launches on each training
 path, each Stage-I validation forward, each EgoT2-g path, the CLI's
-epoch, the TTM baselines' and HOI's paths; kernel 1's row also at 225^2),
+epoch, the TTM baselines' and HOI's paths, HOI Stage II's; kernel 1's row
+also at 225^2),
 and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Float32 runs in full f32 throughout: TF32 is off for cuDNN and for
@@ -396,6 +412,34 @@ PNR_CPU_CLIPS = 4
 PNR_REPEATS = 3
 PNR_NONLOCAL = [[[]], [[1]], [[1]], [[]]]
 TOKEN_TOL = 1e-4   # the 8192-d tokens, card vs CPU, of each token's norm
+# HOI Stage-II inference (hoi_ts): the ts_pnr and ts_oscc translators at
+# their configs' widths (configs/pnr/ts_{pnr,oscc}.yaml: D 128, 6 layers,
+# 16 keyframe logits; D 256, 5 layers, 2 state logits) at
+# tools/bench_hoi.py's geometry: batch 8, 16 raw [0, 255] frames of 225^2
+# for the PNR and OSCC ResNet3D-50s, SlowFast-R50 pathways of 8 slow and
+# 32 fast frames at 224^2 (alpha 4, beta_inv 8): 48 tokens. f32 with TF32
+# off and bf16 (bench_hoi's QUANT=0 dtype), the same weights (the bf16
+# model loads the f32 one's state). The PNR and OSCC stems' BN statistics
+# are fitted to a calibration batch by precise BN (the hoi phase says
+# why). Then one MultiTaskSlowFast forward at the AR task's build
+# (egot2x/tasks/ar.py: depth 50, alpha 8, (115, 478) classes) on 8 clips of
+# 32 frames at 224^2.
+HOI_TS_CLIPS, HOI_TS_FAST, HOI_TS_IMG, HOI_TS_ALPHA = 8, 32, 224, 4
+HOI_TS_MODELS = {
+    "ts_pnr": dict(target="keyframe", feature_dim=128, num_layers=6),
+    "ts_oscc": dict(target="state", feature_dim=256, num_layers=5)}
+HOI_TS_REPEATS = 3
+AR_ALPHA, AR_CLASSES = 8, (115, 478)
+# bf16 against f32 logits over the batch: 1 - cosine <= 1e-3 and max
+# |delta| <= 0.075, set from the card's readings at these seeds (1 - cosine
+# 5.6e-5 and 2.4e-6, max |delta| 0.024 and 0.015 for ts_pnr and ts_oscc),
+# ~18x and ~3x above the worse. They catch a gross dtype fault (a lost
+# cast, an overflow, a trunk in the wrong dtype); a rounding in the wrong
+# place (the encoder's first residual sum in bf16, say) moves the logits
+# by less than bf16 itself does, and the CPU tests hold the dtype at each
+# LayerNorm and projection to the JAX package's instead
+# (tests/test_torch_port_hoi_translators.py)
+HOI_TS_BF16_ONE_MINUS_COSINE, HOI_TS_BF16_MAX_ABS = 1e-3, 0.075
 
 
 def fail(msg):
@@ -3129,6 +3173,189 @@ def hoi_phase(card):
     return total, rows
 
 
+def _hoi_ts_inputs(slow_frames, seed):
+    """uint8 frames (B, 16, 225, 225, 3) and pathways [slow (B, slow_frames,
+    224, 224, 3), fast (B, 32, 224, 224, 3)] on the card, and the f32 feed
+    (the frames cast, the pathways normalised as the stems normalise
+    uint8 ones)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 256, (HOI_TS_CLIPS, PNR_FRAMES, PNR_CROP,
+                                   PNR_CROP, 3), dtype=np.uint8)
+    paths = [rng.integers(0, 256, (HOI_TS_CLIPS, t, HOI_TS_IMG, HOI_TS_IMG,
+                                   3), dtype=np.uint8)
+             for t in (slow_frames, HOI_TS_FAST)]
+    u8 = (torch.from_numpy(frames).cuda(),
+          [torch.from_numpy(p).cuda() for p in paths])
+    f32 = (u8[0].float(),
+           [torch.from_numpy((p.astype(np.float32) / 255.0 - 0.45) / 0.225)
+            .cuda() for p in paths])
+    return u8, f32
+
+
+def _first_clip(feed):
+    """Clip 0 of a (frames, pathways) or (pathways,) feed, on the CPU."""
+    cut = lambda x: ([t[:1].cpu() for t in x] if isinstance(x, list)
+                     else x[:1].cpu())
+    return tuple(cut(x) for x in feed)
+
+
+def _serve_hoi(model, feeds, forward):
+    """The served path of one HOI model: every launch count set to 0 just
+    before, a warm-up, ``HOI_TS_REPEATS`` timed forwards of the f32 feed,
+    one of the uint8 feed; the counts read just after. Returns (f32
+    output, uint8 output, ms a batch, peak GiB, counts)."""
+    import torch
+
+    for fn in _counters().values():
+        fn.launches = 0
+    with torch.no_grad():
+        forward(model, feeds["f32"])                         # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(HOI_TS_REPEATS):
+            out = forward(model, feeds["f32"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / HOI_TS_REPEATS * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        u8 = forward(model, feeds["u8"])
+        torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    expect = _expected(HOI_TS_REPEATS + 2)
+    if counts != expect:
+        fail(f"hoi_ts {type(model).__name__}: launches {counts}, expected "
+             f"{expect}")
+    return out, u8, ms, peak, counts
+
+
+def hoi_ts_phase(card):
+    """HOI Stage-II inference: ts_pnr and ts_oscc
+    (``TaskFusionMFTransformer3TaskDropout``) at their configs' widths,
+    f32 (TF32 off) then bf16, and one ``MultiTaskSlowFast`` at the AR
+    task's build, each through ``_serve_hoi`` (no kernel of the port on
+    this path: the video stems are the library's, the encoders' 48 tokens
+    never reach flash). Checks: finite outputs of the expected shapes; the
+    uint8 feed equal to the f32 one and clip 0 equal to the port's CPU
+    forward (f32, LOGIT_TOL); bf16 logits against f32 within
+    HOI_TS_BF16_ONE_MINUS_COSINE and HOI_TS_BF16_MAX_ABS. Prints ms a
+    batch, clips/s, peak memory and the busy share of one traced forward.
+    Returns the launch counts."""
+    import torch
+
+    from egot2x_torch.train.precise_bn import compute_precise_bn_stats
+
+    total = {k: 0 for k in _counters()}
+    slow = HOI_TS_FAST // HOI_TS_ALPHA
+    u8, f32 = _hoi_ts_inputs(slow, SEED + 50)
+    calibration, _ = _hoi_ts_inputs(slow, SEED + 51)
+    feeds = {"f32": f32, "u8": u8}
+    translate = lambda model, feed: model(*feed)
+    geometry = dict(crop_size=PNR_CROP, alpha=HOI_TS_ALPHA, beta_inv=8)
+    name = "TaskFusionMFTransformer3TaskDropout"
+    for i, (label, widths) in enumerate(HOI_TS_MODELS.items()):
+        kw = dict(geometry, **widths)
+        logits = {}
+        for dtype in ("float32", "bfloat16"):
+            if dtype == "float32":
+                model = _seeded(name, seed=SEED + 52 + i, **kw)
+                compute_precise_bn_stats(model, [calibration], 1, bns=[
+                    model.pnr_model.trunk.s1.bn,
+                    model.oscc_model.trunk.s1.bn])
+                state = {k: v.cpu() for k, v in model.state_dict().items()}
+            else:
+                from egot2x_torch.core.registry import build_model
+
+                model = build_model(name, dtype=torch.bfloat16, **kw)
+                model.load_state_dict(state)
+            out, out_u8, ms, peak, counts = _serve_hoi(model, feeds,
+                                                       translate)
+            for k in total:
+                total[k] += counts[k]
+            busy, by_category = _busy_share(lambda: model(*f32))
+            n_out = 16 if widths["target"] == "keyframe" else 2
+            _check_finite(f"hoi_ts {label} {dtype}",
+                          {"logits": out, "logits_u8": out_u8},
+                          (HOI_TS_CLIPS, n_out))
+            feed_err = _check_close(f"hoi_ts {label} {dtype}: uint8 vs f32 "
+                                    "feed", {"logits": out_u8},
+                                    {"logits": out})
+            logits[dtype] = out.float()
+            check = dict(max_abs_err_feeds=feed_err)
+            if dtype == "float32":
+                cpu = _cpu_twin(name, model, **kw)
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    want = cpu(*_first_clip(f32))
+                check.update(cpu_seconds=time.perf_counter() - t0,
+                             max_abs_err_cpu=_check_close(
+                                 f"hoi_ts {label}: clip 0 card vs CPU",
+                                 {"logits": out[:1]}, {"logits": want}))
+                del cpu
+            else:
+                cosine = _cosine(logits["bfloat16"], logits["float32"])
+                err = float((logits["bfloat16"] - logits["float32"]).abs()
+                            .max())
+                check.update(cosine_vs_f32=cosine, max_abs_err_vs_f32=err)
+                if not (1 - cosine <= HOI_TS_BF16_ONE_MINUS_COSINE
+                        and err <= HOI_TS_BF16_MAX_ABS):
+                    fail(f"hoi_ts {label}: bf16 logits at cosine {cosine} "
+                         f"and max |delta| {err} to f32's, past 1 - "
+                         f"{HOI_TS_BF16_ONE_MINUS_COSINE} and "
+                         f"{HOI_TS_BF16_MAX_ABS}")
+            phase("hoi_ts", card=card, model=name, config=label,
+                  dtype=dtype, **widths, tokens=2 * PNR_FRAMES + slow + 8,
+                  clips=HOI_TS_CLIPS, frames=PNR_FRAMES, crop=PNR_CROP,
+                  pathways=[slow, HOI_TS_FAST], pathway_img=HOI_TS_IMG,
+                  alpha=HOI_TS_ALPHA, feed="f32: raw [0, 255] frames, "
+                  "normalised pathways", ms_per_batch=ms,
+                  clips_per_s=HOI_TS_CLIPS * 1e3 / ms, peak_mem_gib=peak,
+                  device_busy_share=busy, device_ms_by_category=by_category,
+                  launches=counts, tol=LOGIT_TOL,
+                  bf16_bars=dict(
+                      one_minus_cosine=HOI_TS_BF16_ONE_MINUS_COSINE,
+                      max_abs=HOI_TS_BF16_MAX_ABS), **check,
+                  clip0_card=out[0].float().tolist())
+            del model, out, out_u8
+            torch.cuda.empty_cache()
+
+    u8, f32 = _hoi_ts_inputs(HOI_TS_FAST // AR_ALPHA, SEED + 53)
+    u8, f32 = (u8[1],), (f32[1],)   # the pathways alone
+    ar = dict(alpha=AR_ALPHA, num_classes=AR_CLASSES, depth=50)
+    model = _seeded("MultiTaskSlowFast", seed=SEED + 54, **ar)
+    out, out_u8, ms, peak, counts = _serve_hoi(
+        model, {"f32": f32, "u8": u8}, lambda m, feed: m(*feed))
+    for k in total:
+        total[k] += counts[k]
+    busy, by_category = _busy_share(lambda: model(*f32))
+    outs = {"verbs": out[0], "nouns": out[1]}
+    outs_u8 = {"verbs": out_u8[0], "nouns": out_u8[1]}
+    for key, n in zip(("verbs", "nouns"), AR_CLASSES):
+        _check_finite("hoi_ts MultiTaskSlowFast", {key: outs[key]},
+                      (HOI_TS_CLIPS, n))
+    feed_err = _check_close("hoi_ts MultiTaskSlowFast: uint8 vs f32 feed",
+                            outs_u8, outs)
+    cpu = _cpu_twin("MultiTaskSlowFast", model, **ar)
+    with torch.no_grad():
+        want = cpu(*_first_clip(f32))
+    cpu_err = _check_close("hoi_ts MultiTaskSlowFast: clip 0 card vs CPU",
+                           {k: v[:1] for k, v in outs.items()},
+                           {"verbs": want[0], "nouns": want[1]})
+    phase("hoi_ts", card=card, model="MultiTaskSlowFast", **ar,
+          dtype="float32", clips=HOI_TS_CLIPS,
+          pathways=[HOI_TS_FAST // AR_ALPHA, HOI_TS_FAST],
+          pathway_img=HOI_TS_IMG, ms_per_batch=ms,
+          clips_per_s=HOI_TS_CLIPS * 1e3 / ms, peak_mem_gib=peak,
+          device_busy_share=busy, device_ms_by_category=by_category,
+          launches=counts, tol=LOGIT_TOL, max_abs_err_feeds=feed_err,
+          max_abs_err_cpu=cpu_err, out_shapes=[list(o.shape) for o in out])
+    del model, cpu
+    torch.cuda.empty_cache()
+    return total
+
+
 def _line_row(name, row, counts, replaces, route="cuda",
               source="egot2x_torch/csrc/stem_pool.cu"):
     return dict(name=name, route=route, source=source, replaces=replaces,
@@ -3186,6 +3413,7 @@ def main():
     cli_counts = cli_phase(card)
     baseline_counts = ttm_baselines_phase(card, next(_requests()))
     hoi_counts, pnr_rows = hoi_phase(card)
+    hoi_ts_counts = hoi_ts_phase(card)
     float_stem, int8_stem = ("egot2x/ops/pallas_stem.py:251",
                              "egot2x/ops/pallas_stem.py:373")
     # each kernel at its main path's input type: f32 (float slice), bf16
@@ -3232,6 +3460,7 @@ def main():
         row["cli_launches"] = cli_counts[row["name"]]
         row["ttm_baselines_launches"] = baseline_counts[row["name"]]
         row["hoi_launches"] = hoi_counts[row["name"]]
+        row["hoi_ts_launches"] = hoi_ts_counts[row["name"]]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,11 @@ The layouts differ as follows:
   * the ResNet3D models (``nn/resnet3d.py``, ``models/pnr.py``) and the
     TTM baselines' heads have the JAX package's names, so each module's
     path is its JAX path with "/" for ".";
+  * SlowFast and the AR models (``nn/slowfast.py``, ``models/ar_lta.py``)
+    and the HOI translators (``translate/egot2s_hoi.py``) have the JAX
+    package's names too, but the HOI cores' encoder layers
+    (``transformer.layers.{i}``, JAX ``transformer/layers_{i}``); a core's
+    learned ``pe`` is a parameter of the module that owns it, as in JAX;
   * the EgoT2-g prompt models hold their prompt core (``ln``,
     ``task_embed``, ``embedding``, ``fc``, the encoder and the decoder)
     at their top, as the reference does, and the JAX package under
@@ -44,6 +49,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from egot2x_torch.models.ar_lta import MultiTaskSlowFast, SlowFastFeature
 from egot2x_torch.models.asd import TalkNetBackbone, TalkNetWithHeads
 from egot2x_torch.models.lam import BaselineLSTM
 from egot2x_torch.models.pnr import KeyframeCnnLSTM, _PnrResNet
@@ -55,6 +61,7 @@ from egot2x_torch.nn.quant import SCALE_BUFFERS
 from egot2x_torch.nn.resnet2d import BasicBlock2D, ResNet2D
 from egot2x_torch.nn.resnet3d import ResNet3D
 from egot2x_torch.nn.resnet_se import ResNetSE
+from egot2x_torch.nn.slowfast import SlowFast
 from egot2x_torch.nn.talknet import (AVSRResNetLayer, CrossAttentionLayer,
                                      GlobalLayerNorm, TalkNetModel,
                                      VisualFrontend)
@@ -63,6 +70,7 @@ from egot2x_torch.translate.egot2g import STREAM_IDS, _HHIPromptBase
 from egot2x_torch.translate.egot2s_hhi import (FROZEN_KEYS, _FrameBaseline,
                                                _MFTransformerCore,
                                                _TTMBaseline)
+from egot2x_torch.translate.egot2s_hoi import TokenFusionCore, _HOIStreamMixin
 
 # (torch key, [(collection, jax path)], layout)
 Rule = Tuple[str, List[Tuple[str, Tuple[str, ...]]], str]
@@ -111,8 +119,10 @@ def _leaf_rules(module: nn.Module, t: str, j: str) -> List[Rule]:
                 (t + "running_mean", [("batch_stats", _p(f"{j}/mean"))], "id"),
                 (t + "running_var", [("batch_stats", _p(f"{j}/var"))], "id")]
     if isinstance(module, nn.Linear):
-        return [(t + "weight", [prm("kernel")], "linear"),
-                (t + "bias", [prm("bias")], "id")]
+        rules = [(t + "weight", [prm("kernel")], "linear")]
+        if module.bias is not None:
+            rules.append((t + "bias", [prm("bias")], "id"))
+        return rules
     if isinstance(module, nn.LayerNorm):
         return [(t + "weight", [prm("scale")], "id"),
                 (t + "bias", [prm("bias")], "id")]
@@ -124,6 +134,8 @@ def _leaf_rules(module: nn.Module, t: str, j: str) -> List[Rule]:
                  "qkv_w"),
                 (t + "in_proj_bias", [prm(f"{n}/bias") for n in qkv], "qkv_b"),
                 *_leaf_rules(module.out_proj, t + "out_proj", f"{j}/out_proj")]
+    if isinstance(module, (TokenFusionCore, _HOIStreamMixin)):
+        return [(t + "pe", [prm("pe")], "id")]   # the learned PE
     if isinstance(module, GlobalLayerNorm):
         return [(t + "gamma", [prm("gamma")], "gln"),
                 (t + "beta", [prm("beta")], "gln")]
@@ -307,6 +319,16 @@ def _prompt(model: _HHIPromptBase) -> Iterator[Tuple[str, str]]:
                         len(model.transformer_decoder.layers))
 
 
+def _hoi(model: _HOIStreamMixin) -> Iterator[Tuple[str, str]]:
+    """An HOI translator: its modules at their JAX paths, the core's
+    encoder layers renamed."""
+    yield from _mirror(model, skip=("core",))
+    if hasattr(model, "core"):
+        yield from (("core", "core"), ("core.ln", "core/ln"))
+        yield from _encoder("core.transformer.", "core/transformer",
+                            len(model.core.transformer.layers))
+
+
 def _nested(module: nn.Module, t: str, j: str) -> List[Rule]:
     """``bridge_rules(module)`` for a submodule at port path ``t`` and JAX
     path ``j``."""
@@ -345,8 +367,11 @@ def bridge_rules(model: nn.Module) -> List[Rule]:
     elif isinstance(model, _TTMBaseline):
         pairs = [*_trunks(model), *_mirror(model, skip=FROZEN_KEYS)]
         extra = []
-    elif isinstance(model, (_PnrResNet, ResNet3D)):
+    elif isinstance(model, (_PnrResNet, ResNet3D, SlowFast,
+                            MultiTaskSlowFast, SlowFastFeature)):
         pairs, extra = _mirror(model), []
+    elif isinstance(model, _HOIStreamMixin):
+        pairs, extra = _hoi(model), []
     elif isinstance(model, KeyframeCnnLSTM):
         pairs = [*_resnet2d("backbone.", "backbone",
                             model.backbone.stage_sizes),
@@ -399,8 +424,9 @@ def from_jax_variables(model: nn.Module, variables) -> Dict[str, torch.Tensor]:
         if missing:
             raise KeyError(f"{key}: JAX leaves {missing} not found")
         used.update(srcs)
-        arr = np.array(_TO_TORCH[layout]([flat[s] for s in srcs]), order="C")
-        state[key] = torch.from_numpy(arr.astype(np.float32))
+        state[key] = torch.from_numpy(np.array(
+            _TO_TORCH[layout]([flat[s] for s in srcs]), dtype=np.float32,
+            order="C"))
     unused = sorted("/".join(k) for k in set(flat) - used)
     if unused:
         raise KeyError(f"JAX leaves with no port counterpart: {unused}")
@@ -436,6 +462,18 @@ def to_jax_variables(model: nn.Module) -> Dict[str, dict]:
     return out
 
 
+def _jax_shapes(model: nn.Module) -> Dict[Tuple[str, ...], tuple]:
+    """The shape of every leaf of ``to_jax_variables(model)``, by path,
+    without copying a weight."""
+    sizes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    shapes = {}
+    for key, sources, layout in bridge_rules(model):
+        empty = np.broadcast_to(np.float32(0), sizes[key])
+        for (coll, path), leaf in zip(sources, _TO_JAX[layout](empty)):
+            shapes[(coll,) + path] = np.shape(leaf)
+    return shapes
+
+
 def random_jax_variables(model: nn.Module, seed: int) -> Dict[str, dict]:
     """A JAX-layout variable tree for ``model`` drawn from a numpy seed:
     kernels ~ N(0, 1/fan_in), small biases, BN/LN/gLN near identity,
@@ -444,26 +482,30 @@ def random_jax_variables(model: nn.Module, seed: int) -> Dict[str, dict]:
     model gets the float model's weights). For runs that need weights but
     no checkpoint."""
     rng = np.random.default_rng(seed)
-    template = _flatten(to_jax_variables(model))
+    template = _jax_shapes(model)
     out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     for path in sorted(template):
-        shape, leaf = template[path].shape, path[-1]
+        shape, leaf = template[path], path[-1]
         if leaf in SCALE_BUFFERS:
             v = np.zeros(shape)
         elif leaf == "kernel":
-            v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
+            v = rng.standard_normal(shape)
+            v /= np.sqrt(np.prod(shape[:-1]))
         elif leaf in ("w_ih", "w_hh"):   # an LSTM's (in, 4H)
-            v = rng.standard_normal(shape) / np.sqrt(shape[0])
+            v = rng.standard_normal(shape)
+            v /= np.sqrt(shape[0])
         elif leaf in ("scale", "gamma", "var"):
             v = rng.uniform(0.8, 1.2, shape)
         elif leaf == "prelu_alpha":
             v = np.full(shape, 0.25)
-        elif leaf == "task_embed":
+        elif leaf in ("task_embed", "pe"):   # flax's normal(1.0)
             v = rng.standard_normal(shape)
         elif leaf == "embedding":   # a (vocab, D) table: rows of norm ~1
-            v = rng.standard_normal(shape) / np.sqrt(shape[-1])
+            v = rng.standard_normal(shape)
+            v /= np.sqrt(shape[-1])
         else:  # bias, beta, mean
-            v = rng.standard_normal(shape) * 0.05
+            v = rng.standard_normal(shape)
+            v *= 0.05
         node = out.setdefault(path[0], {})
         for p in path[1:-1]:
             node = node.setdefault(p, {})

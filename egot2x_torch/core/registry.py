@@ -65,8 +65,10 @@ def build_model(name: str, device=None, **kwargs) -> torch.nn.Module:
     compute dtype; parameters stay f32) and, for the 3-task translator,
     ``quant`` and ``fuse_stems``; the EgoT2-g prompt models take
     ``vocab_size``; the PNR/OSCC models ``arch``, ``crop_size``,
-    ``nonlocal_cfg`` (``nn/resnet3d.py::resolve_nonlocal``). Weights are
-    the module defaults: load real ones with
+    ``nonlocal_cfg`` (``nn/resnet3d.py::resolve_nonlocal``); the HOI
+    translators (``translate/egot2s_hoi.py``) ``target``,
+    ``feature_dim``, ``num_layers``, ``alpha``, ``pnr_frames`` and
+    ``action_frames``. Weights are the module defaults: load real ones with
     :func:`egot2x_torch.core.bridge.load_jax_variables` or
     ``load_state_dict``; a ``quant`` model then needs
     :func:`egot2x_torch.nn.quant.calibrate` (or calibrated scales in what
@@ -77,12 +79,14 @@ def build_model(name: str, device=None, **kwargs) -> torch.nn.Module:
 
 def register_models() -> None:
     """Import every module that registers a model."""
+    import egot2x_torch.models.ar_lta  # noqa: F401
     import egot2x_torch.models.asd  # noqa: F401
     import egot2x_torch.models.lam  # noqa: F401
     import egot2x_torch.models.pnr  # noqa: F401
     import egot2x_torch.models.ttm  # noqa: F401
     import egot2x_torch.translate.egot2g  # noqa: F401
     import egot2x_torch.translate.egot2s_hhi  # noqa: F401
+    import egot2x_torch.translate.egot2s_hoi  # noqa: F401
 
 
 def place(model: torch.nn.Module, device=None) -> torch.nn.Module:

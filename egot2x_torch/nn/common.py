@@ -138,11 +138,20 @@ class MultiHeadAttention(nn.Module):
 class TransformerEncoderLayer(nn.Module):
     """Post-LN layer (torch ``nn.TransformerEncoderLayer`` default layout):
     x = norm1(x + dropout1(attn(x)));
-    x = norm2(x + dropout2(linear2(dropout(relu(linear1(x))))))."""
+    x = norm2(x + dropout2(linear2(dropout(relu(linear1(x)))))).
+
+    ``dtype``, where given, is the compute dtype of the attention and of
+    ``norm1``'s output, for input that comes wider: flax's layers cast
+    what they take to their dtype, so an f32 input under bf16 layers is
+    attended in bf16, added to the bf16 attention in f32 and normalised to
+    bf16 (the HOI translators' f32 sum of a bf16 LayerNorm and an f32
+    PE). None computes in the input's dtype."""
 
     def __init__(self, d_model: int, num_heads: int,
-                 dim_feedforward: int = 2048, dropout: float = 0.1):
+                 dim_feedforward: int = 2048, dropout: float = 0.1,
+                 dtype=None):
         super().__init__()
+        self.compute_dtype = dtype
         self.self_attn = MultiHeadAttention(d_model, num_heads, dropout)
         self.linear1 = Linear(d_model, dim_feedforward)
         self.linear2 = Linear(dim_feedforward, d_model)
@@ -152,20 +161,25 @@ class TransformerEncoderLayer(nn.Module):
             Dropout(dropout) for _ in range(3))
 
     def forward(self, x, mask=None):
-        x = self.norm1(x + self.dropout1(self.self_attn(x, x, x, mask)))
+        h = x if self.compute_dtype is None else x.to(self.compute_dtype)
+        x = self.norm1(x + self.dropout1(self.self_attn(h, h, h, mask)))
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         h = self.dropout(torch.relu(self.linear1(x)))
         return self.norm2(x + self.dropout2(self.linear2(h)))
 
 
 class TransformerEncoder(nn.Module):
-    """Stack of post-LN encoder layers (``layers.{i}``)."""
+    """Stack of post-LN encoder layers (``layers.{i}``); ``dtype`` as the
+    layer's."""
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int,
-                 dim_feedforward: int = 2048, dropout: float = 0.1):
+                 dim_feedforward: int = 2048, dropout: float = 0.1,
+                 dtype=None):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, num_heads, dim_feedforward,
-                                    dropout)
+                                    dropout, dtype)
             for _ in range(num_layers))
 
     def forward(self, x, mask=None):

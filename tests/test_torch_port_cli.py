@@ -113,8 +113,8 @@ def test_what_is_not_ported_raises_by_name(workdir):
     with pytest.raises(NotImplementedError, match="pnr_train"):
         from egot2x_torch.cli import pnr_train  # noqa: F401
     with pytest.raises(NotImplementedError,
-                       match="TaskFusionMFTransformer3TaskDropout"):
-        run_ttm.main(["--model", "TaskFusionMFTransformer3TaskDropout",
+                       match="ARTaskFusionMFTransformer3Task"):
+        run_ttm.main(["--model", "ARTaskFusionMFTransformer3Task",
                       "--synthetic",
                       "--fast_dev_run", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="model_parallel"):

@@ -17,6 +17,8 @@ weights) rtol = atol = 1e-5; the prompt models' teacher-forced and
 flagship's (tests/test_torch_port_slice.py).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +35,8 @@ from egot2x.nn.common import TransformerDecoder as JaxDecoder  # noqa: E402
 from egot2x.ops.attention import (  # noqa: E402
     dot_product_attention as jax_attention)
 from egot2x.translate.egot2g import (  # noqa: E402
+    HHI_G_FROZEN_KEYS as FROZEN)
+from egot2x.translate.egot2g import (  # noqa: E402
     TaskTranslationPromptTransformer as JaxTranslation)
 from egot2x.translate.vocab import build_hhi_vocab as jax_vocab  # noqa: E402
 from egot2x_torch.core import bridge  # noqa: E402
@@ -42,7 +46,8 @@ from egot2x_torch.nn.common import TransformerDecoder  # noqa: E402
 from egot2x_torch.ops import attention, flash  # noqa: E402
 from egot2x_torch.translate.egot2g import _HHIPromptBase  # noqa: E402
 from egot2x_torch.translate.vocab import build_hhi_vocab  # noqa: E402
-from test_torch_port_train import _one_thread  # noqa: E402,F401
+from test_torch_port_train import (_one_thread,  # noqa: E402,F401
+                                   trunks_traced_once)
 
 V, D, HEADS, LAYERS = 7, 32, 4, 1
 B, T, IMG = 2, 3, 32
@@ -297,6 +302,7 @@ def logits(prompt):
     streams, targets = _inputs(1)
 
     @jax.jit
+    @functools.partial(trunks_traced_once, names=FROZEN)
     def run(v, s, tg):
         out = {}
         for task in TASKS:

@@ -20,8 +20,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from egot2x.translate.egot2g import HHI_G_FROZEN_KEYS  # noqa: E402
 from test_torch_port_egot2g_train import (  # noqa: E402,F401
     B, T, _as, _batches, _one_thread, _tasks)
+from test_torch_port_train import trunks_traced_once  # noqa: E402
 
 TASKS = ("lam", "ttm", "asd")
 
@@ -38,7 +40,9 @@ def evaluated(task_name):
     """Each side's eval-step outputs on two batches and its validation
     metrics over them."""
     task, state, jax_task, jstate = _tasks(task_name)
-    jax_eval = jax.jit(jax_task.eval_step)
+    # the JAX eval step encodes each task's batch twice: trunks traced once
+    jax_eval = jax.jit(trunks_traced_once(jax_task.eval_step,
+                                          HHI_G_FROZEN_KEYS))
     ctx, jctx = task.start_validation(), jax_task.start_validation()
     outputs = []
     for seed in (20, 21):

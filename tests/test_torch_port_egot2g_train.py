@@ -18,7 +18,8 @@ Two steps on two batches. Each step the JAX task takes its step at the
 port's parameters, and JAX's gradient is the one that step hands the
 optimizer, kept by a capturing optimizer (``capture_grads``); then the
 JAX state goes on with
-the port's gradient (``apply_gradients``), so that both stay on one
+the port's gradient (``apply_gradients`` with the JAX task's optimizer,
+over a packed tree: ``PackedAdam``), so that both stay on one
 trajectory: Adam's first steps scale a gradient g by lr / (|g| + eps),
 which turns a rounding difference in an element whose g is ~0 (k_proj's
 bias, 0 in exact arithmetic) into one of ~lr in the parameter (see
@@ -49,8 +50,9 @@ from egot2x_torch.data.combined import CombinedLoader  # noqa: E402
 from egot2x_torch.tasks import multitask_hhi  # noqa: E402
 from egot2x_torch.train.trainer import Trainer  # noqa: E402
 from egot2x_torch.translate.egot2g import FROZEN_KEYS  # noqa: E402
-from test_torch_port_train import (_as_jax, _leaves,  # noqa: E402
-                                   _no_dropout, _one_thread, capture_grads)
+from test_torch_port_train import (PackedAdam, _as_jax,  # noqa: E402
+                                   _leaves, _no_dropout, _one_thread,
+                                   capture_grads)
 
 D, HEADS, LAYERS = 32, 4, 1
 B, T, IMG, LAM_FRAMES = 2, 3, 32, 7
@@ -142,7 +144,7 @@ def run(task_name):
     frozen = {k: v.clone() for k, v in model.state_dict().items()
               if k.split(".", 1)[0] in FROZEN_KEYS}
     jax_step = jax.jit(jax_task.train_step)
-    follow = jax.jit(lambda js, grads: js.apply_gradients(grads))
+    follow = PackedAdam(jstate.params, jstate.tx)
     shadow = copy.deepcopy(model)
     generator = torch.Generator().manual_seed(0)
     steps = []
@@ -161,12 +163,12 @@ def run(task_name):
         grads = _as_jax(shadow, {n: p.grad for n, p in
                                  model.named_parameters()
                                  if p.grad is not None})
-        jstate = follow(jstate, grads)
+        follow.apply(grads)
         steps.append((float(metrics["loss"]), float(jmetrics["loss"]),
                       _leaves(grads), _leaves(jgrads)))
     return dict(task=task, state=state, steps=steps, frozen=frozen,
                 params=_leaves(trainable()),
-                jax_params=_leaves(jstate.params))
+                jax_params=_leaves(follow.params()))
 
 
 @pytest.mark.parametrize("step", range(STEPS))

@@ -12,7 +12,8 @@ CPU path of ``ops/stem.py::stem_pool_2d``). The keyframe model runs a
 hoi phase does). Weights: ``random_jax_variables`` through the bridge,
 with the statistics of the stems' BNs and of the Nonlocals' BNs set from a
 calibration batch by precise BN (tests/test_torch_port_resnet3d.py says
-why). f32 on the CPU, the JAX side jitted once a model.
+why). f32 on the CPU, the JAX side jitted once a model, its trunk traced
+once for the outputs of one jit (``trunks_traced_once``).
 
 Tolerances: logits and scores max |delta| <= 1e-4 (1 + |ref|); the
 8192-d tokens within 1e-4 of their norm per frame (and elementwise at the
@@ -38,7 +39,8 @@ from egot2x_torch.nn.resnet3d import Nonlocal, resolve_nonlocal  # noqa: E402
 from egot2x_torch.train.precise_bn import (  # noqa: E402
     compute_precise_bn_stats)
 from test_torch_port_resnet3d import assert_close  # noqa: E402
-from test_torch_port_train import _one_thread  # noqa: E402,F401
+from test_torch_port_train import (_one_thread,  # noqa: E402,F401
+                                   trunks_traced_once)
 
 B, T, CROP, LSTM_IMG = 2, 4, 65, 64
 SEED = 4
@@ -79,8 +81,9 @@ def keyframe():
     port, jm, v = _pair("KeyframeLocalizationResNet", crop_size=CROP,
                         nonlocal_cfg=NONLOCAL)
     x = _frames(1)
-    want = jax.jit(lambda v, f: (jm.apply(v, f), jm.apply(v, f, middle=True)))(
-        v, jnp.asarray(x))
+    want = jax.jit(trunks_traced_once(
+        lambda v, f: (jm.apply(v, f), jm.apply(v, f, middle=True)),
+        ("trunk",)))(v, jnp.asarray(x))
     with torch.no_grad():
         got = (port(torch.from_numpy(x)),
                port(torch.from_numpy(x), middle=True))
@@ -98,9 +101,10 @@ def state_change():
     jm_np = jax_build("StateChangeClsResNet", crop_size=CROP,
                       no_temp_pool=True)
     x = _frames(2)
-    want = jax.jit(lambda v, f: (jm.apply(v, f), jm_np.apply(v, f),
-                                 jm.apply(v, f, middle=True),
-                                 jm_np.apply(v, f, middle=True)))(
+    want = jax.jit(trunks_traced_once(
+        lambda v, f: (jm.apply(v, f), jm_np.apply(v, f),
+                      jm.apply(v, f, middle=True),
+                      jm_np.apply(v, f, middle=True)), ("trunk",)))(
         v, jnp.asarray(x))
     with torch.no_grad():
         xt = torch.from_numpy(x)

@@ -83,6 +83,53 @@ def _one_thread():
     torch.set_num_threads(threads)
 
 
+def _same_call(a, b):
+    """Two calls' (variables, args, kwargs): the very same objects (the
+    same tracers, within one trace), or equal plain values."""
+    la, lb = jax.tree_util.tree_leaves(a), jax.tree_util.tree_leaves(b)
+    return (jax.tree_util.tree_structure(a) == jax.tree_util.tree_structure(b)
+            and all(x is y or (not isinstance(x, jax.Array)
+                               and not isinstance(y, jax.Array) and x == y)
+                    for x, y in zip(la, lb)))
+
+
+def trunks_traced_once(fn, names):
+    """``fn`` with each call of a module named in ``names`` (the frozen
+    trunks) that repeats an earlier call of this trace, by a module of the
+    same path, type and configuration with the same variables and the
+    same arguments, given that call's result instead of tracing the trunk
+    again. The JAX oracles call their trunks once a task encode, and again
+    in ``predict`` or in the second of two encodes of a batch; an
+    eval-mode trunk is a pure function of its variables and inputs, so
+    only the tracing and compiling shrink. Apply it to the function a
+    ``jax.jit`` traces."""
+    from flax import linen as flax_nn
+
+    def config(module):
+        return type(module), [(f, getattr(module, f))
+                              for f in module.__dataclass_fields__
+                              if f not in ("parent", "name")]
+
+    def intercept(next_fun, args, kwargs, context, seen):
+        module = context.module
+        if context.method_name != "__call__" or module.name not in names:
+            return next_fun(*args, **kwargs)
+        key = (module.path, config(module), module.variables, args, kwargs)
+        for other, out in seen:
+            if other[:2] == key[:2] and _same_call(other[2:], key[2:]):
+                return out
+        out = next_fun(*args, **kwargs)
+        seen.append((key, out))
+        return out
+
+    def traced(*args, **kwargs):
+        seen = []
+        with flax_nn.intercept_methods(
+                lambda *a: intercept(*a, seen=seen)):
+            return fn(*args, **kwargs)
+    return traced
+
+
 def _cfg(**kw):
     base = dict(model="TaskFusionMFTransformer3Task", weights=WEIGHTS, lr=LR,
                 wd=WD, hidden_dim=D, num_heads=HEADS, num_layers=LAYERS,

@@ -46,7 +46,6 @@ import egot2x.translate.egot2s_hhi  # noqa: E402,F401
 from egot2x.core.registry import build_model as jax_build  # noqa: E402
 from egot2x.tasks.lam import weighted_cross_entropy as jax_wce  # noqa: E402
 from egot2x.train.optim import construct_optimizer as jax_opt  # noqa: E402
-from egot2x.train.state import TrainState as JaxTrainState  # noqa: E402
 from egot2x_torch.core import bridge  # noqa: E402
 from egot2x_torch.core.config import Config  # noqa: E402
 from egot2x_torch.nn.resnet2d import ResNet2D  # noqa: E402
@@ -251,38 +250,37 @@ def oracle(flagship):
                           num_heads=HEADS, num_layers=LAYERS, dropout=0.0,
                           nofreeze=True)
     params = variables["params"]
-    jstate = JaxTrainState.create(
-        apply_fn=jax_model.apply, params=params,
-        tx=jax_opt(params, "adam", lr=LR, weight_decay=WD),
-        batch_stats=variables["batch_stats"])
     weights = jnp.asarray(WEIGHTS)
 
     @jax.jit
-    def grad_step(js, batch):
+    def grad_step(params, batch_stats, batch):
         def loss_fn(p):
-            out = js.apply_fn({"params": p, "batch_stats": js.batch_stats},
-                              *(batch[k] for k in INPUTS), train=True,
-                              deterministic=True)
+            out = jax_model.apply({"params": p, "batch_stats": batch_stats},
+                                  *(batch[k] for k in INPUTS), train=True,
+                                  deterministic=True)
             return jax_wce(out, batch["label"], weights)
-        return jax.value_and_grad(loss_fn)(js.params)
+        return jax.value_and_grad(loss_fn)(params)
 
-    adam = PackedAdam(params, jstate.tx)
+    # the JAX state's Adam over the packed tree (an optax state of the
+    # whole tree would compile one small program a leaf shape)
+    adam = PackedAdam(params, jax_opt(params, "adam", lr=LR,
+                                      weight_decay=WD))
     shadow = copy.deepcopy(model)
     gen = torch.Generator().manual_seed(0)
     steps = []
     for i in range(STEPS):
         batch = _batch(10 + i)
-        jloss, jgrads = grad_step(jstate, {
+        jloss, jgrads = grad_step(params, variables["batch_stats"], {
             k: jnp.asarray(batch[k]) for k in INPUTS + ("label",)})
         state, metrics = t.train_step(state, _torch_batch(batch), gen)
         grads = _as_jax(shadow, _grads(model))
-        jstate = jstate.replace(params=adam.apply(grads).params())
+        params = adam.apply(grads).params()
         steps.append((float(metrics["loss"]), float(jloss), _leaves(grads),
                       _leaves(jgrads)))
     return dict(steps=steps, state=state, stats_before=stats_before,
                 params=_leaves(_as_jax(shadow, dict(
                     model.named_parameters()))),
-                jax_params=_leaves(jstate.params))
+                jax_params=_leaves(params))
 
 
 def test_nofreeze_step_loss_matches_jax(oracle):
