@@ -18,8 +18,10 @@ Phases, each printing one line or more:
               yardstick's and the card's bound for the same work, and its
               ``design`` (mma.sync: 3xFP16 for f32 input, bf16 with the
               weights as bf16 hi + lo for bf16 input);
-  4. int8conv the int8 conv (im2col + ``torch._int_mm``) against its exact
-              plain version at a layer1 and a layer4 shape, bit for bit;
+  4. int8conv the int8 convs (im2col + ``torch._int_mm``) against their
+              exact plain versions, bit for bit: 2D at a layer1 and a
+              layer4 shape, 3D at the PNR trunk's res2 1x3x3 and res4
+              3x1x1 shapes at batch 8 (the hoi_int8 path);
      flash    the flash-attention kernel (mma.sync: bf16, or 3xTF32 for f32)
               against its plain version at TalkNet's shapes on a 2048-frame
               track ((8, 2048, 16) and (8, 2048, 32)), the EgoT2-g prompt
@@ -206,11 +208,24 @@ then HOI Stage-II inference:
               forward (f32), bf16 logits within 1 - cosine 1e-3 and max
               |delta| 0.075 of f32's; ms a batch, clips/s, peak memory and
               the busy share.
+ 23. hoi_int8  the same ts_pnr and ts_oscc, weights and served batch with
+              int8 trunks (``quant=True``: the 208 stage convs of the two
+              ResNet3D-50s and SlowFast are ``QuantConv3d``; stems,
+              laterals, Nonlocals and heads float), calibrated by
+              ``nn/quant.py::calibrate`` on a batch of their own after the
+              stem BNs' fit, bf16 (tools/bench_hoi.py's default) then f32:
+              one ``int8_conv3d`` launch a ``QuantConv3d`` a forward (the
+              count read from the model), 0 of every other kernel; int8
+              vs float logits of the same dtype at cosine > 0.99 (argmax
+              agreement printed), clip 0 vs the port's CPU forward (the
+              plain f64 int8 conv) at cosine > 0.999, the uint8 feed
+              within the int8 bar of the f32 one; ms a batch, clips/s,
+              peak memory, the busy share and device ms by class.
 
 Then one JSON line of every kernel (with its launches on each training
 path, each Stage-I validation forward, each EgoT2-g path, the CLI's
-epoch, the TTM baselines' and HOI's paths, HOI Stage II's; kernel 1's row
-also at 225^2),
+epoch, the TTM baselines' and HOI's paths, HOI Stage II's float and int8
+paths; kernel 1's row also at 225^2),
 and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Float32 runs in full f32 throughout: TF32 is off for cuDNN and for
@@ -440,6 +455,27 @@ AR_ALPHA, AR_CLASSES = 8, (115, 478)
 # LayerNorm and projection to the JAX package's instead
 # (tests/test_torch_port_hoi_translators.py)
 HOI_TS_BF16_ONE_MINUS_COSINE, HOI_TS_BF16_MAX_ABS = 1e-3, 0.075
+# the int8 3D conv's rows (int8conv) at two shapes of hoi_int8's path, the
+# PNR trunk at batch 8 x 16 frames of 225^2: res2's 1x3x3 ``b`` conv (the
+# largest im2col) and the first res4 3x1x1 ``a`` conv that takes 1024
+# channels (block 1; the widest K): (input NCTHW, out channels, kernel,
+# stride, padding)
+INT8_3D = {
+    "pnr s2.block0.branch2.b": ((HOI_TS_CLIPS, 64, PNR_FRAMES, 57, 57), 64,
+                                (1, 3, 3), (1, 1, 1), (0, 1, 1)),
+    "pnr s4.block1.branch2.a": ((HOI_TS_CLIPS, 1024, PNR_FRAMES, 15, 15), 256,
+                                (3, 1, 1), (1, 1, 1), (1, 0, 0))}
+# HOI Stage II with int8 trunks (hoi_int8): hoi_ts's ts_pnr and ts_oscc, its
+# seeded weights and fitted stem BNs, its served batch; int8 trunks
+# (``quant=True``) calibrated on a batch of their own (seed
+# HOI_INT8_CALIBRATION), bf16 (tools/bench_hoi.py's QUANT=1 default) then
+# f32 with TF32 off. Bars: int8 vs float of the same dtype cosine >
+# INT8_VS_FLOAT_COSINE (the JAX package's own int8 HOI gate,
+# tests/test_quant_3d.py:113-114); card vs the port's CPU forward of clip 0
+# cosine > INT8_CARD_CPU_COSINE and the uint8 feed within INT8_LOGIT_TOL
+# of the f32 one (the 2D int8 slice's bars: a value at a quantization
+# boundary can land a quantum apart between two devices' roundings)
+HOI_INT8_CALIBRATION = SEED + 55
 
 
 def fail(msg):
@@ -857,10 +893,12 @@ def kernel_q_phase():
 
 
 def int8_conv_phase():
-    """The int8 conv (NHWC im2col + ``torch._int_mm``) against its exact
-    plain version (a float64 conv of the int8 values) at a layer1 and a
-    layer4 shape of the main path: int32, bit for bit. Returns the layer1
-    row (the largest im2col)."""
+    """The int8 convs (channels-last im2col + ``torch._int_mm``) against
+    their exact plain versions (float64 convs of the int8 values), int32,
+    bit for bit: the 2D one at a layer1 and a layer4 shape of the
+    flagship's trunks, the 3D one at two of the HOI trunks' (``INT8_3D``).
+    Returns the 2D layer1 row (the largest 2D im2col) and the 3D res2 row
+    (the largest 3D one)."""
     import torch
 
     from egot2x_torch.ops import int8
@@ -875,31 +913,53 @@ def int8_conv_phase():
         x = x.contiguous(memory_format=torch.channels_last)
         w = torch.randint(-127, 128, (o, c, k, k), dtype=torch.int8,
                           generator=g).cuda()
-        got = int8.conv2d_int8(x, w, stride, k // 2)
-        want = int8.conv2d_int8_plain(x, w, stride, k // 2)
-        exact = torch.equal(got, want)
-        ho = got.shape[2]
-        flops = 2.0 * n * ho * ho * o * c * k * k
-        nbytes = x.numel() + w.numel() + got.numel() * 4
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        row = dict(conv=name, shape=list(x.shape), weight=list(w.shape),
-                   out_shape=list(got.shape), exact=exact,
-                   max_abs_err=int((got - want).abs().max()),
-                   ms=time_ms(lambda: int8.conv2d_int8(x, w, stride, k // 2)),
-                   peak_extra_gib=(torch.cuda.max_memory_allocated()
-                                   - before) / 2**30,
-                   plain_ms=time_ms(lambda: int8.conv2d_int8_plain(
-                       x, w, stride, k // 2), iters=3),
-                   library_ms=None, flops=flops, bytes=nbytes)
-        row["bound_ms"], row["bound_by"] = _roofline(flops, nbytes, x.dtype)
-        phase("int8conv", **row)
-        if not exact:
-            fail(f"int8 conv {name} differs from its exact plain version")
-        rows[name] = row
-        del x, w, got, want
-        torch.cuda.empty_cache()
-    return rows["layer1.0.conv1"]
+        rows[name] = _int8_conv_row(
+            name, x, w, (stride,) * 2, (k // 2,) * 2,
+            lambda a, b: int8.conv2d_int8(a, b, stride, k // 2),
+            lambda a, b: int8.conv2d_int8_plain(a, b, stride, k // 2))
+    for name, (shape, o, kernel, stride, pad) in INT8_3D.items():
+        x = torch.randint(-127, 128, shape, dtype=torch.int8,
+                          generator=g).cuda()
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+        w = torch.randint(-127, 128, (o, shape[1], *kernel),
+                          dtype=torch.int8, generator=g).cuda()
+        rows[name] = _int8_conv_row(
+            name, x, w, stride, pad,
+            lambda a, b: int8.conv3d_int8(a, b, stride, pad),
+            lambda a, b: int8.conv3d_int8_plain(a, b, stride, pad))
+    return rows["layer1.0.conv1"], rows[next(iter(INT8_3D))]
+
+
+def _int8_conv_row(name, x, w, stride, pad, conv, plain):
+    """One int8 conv row: ``conv(x, w)`` against ``plain(x, w)`` bit for
+    bit; its time beside the plain version's, its peak extra memory and
+    the bound (the products of in-image taps only: a tap in the zero
+    padding needs none)."""
+    import torch
+
+    got, want = conv(x, w), plain(x, w)
+    exact = torch.equal(got, want)
+    taps = math.prod(_in_image_taps(n, k, st, p) for n, k, st, p in zip(
+        x.shape[2:], w.shape[2:], stride, pad))
+    flops = 2.0 * x.shape[0] * w.shape[0] * w.shape[1] * taps
+    nbytes = x.numel() + w.numel() + got.numel() * 4
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    row = dict(conv=name, shape=list(x.shape), weight=list(w.shape),
+               out_shape=list(got.shape), exact=exact,
+               max_abs_err=int((got - want).abs().max()),
+               ms=time_ms(lambda: conv(x, w)),
+               peak_extra_gib=(torch.cuda.max_memory_allocated()
+                               - before) / 2**30,
+               plain_ms=time_ms(lambda: plain(x, w), iters=3),
+               library_ms=None, flops=flops, bytes=nbytes)
+    row["bound_ms"], row["bound_by"] = _roofline(flops, nbytes, x.dtype)
+    phase("int8conv", **row)
+    if not exact:
+        fail(f"int8 conv {name} differs from its exact plain version")
+    del got, want
+    torch.cuda.empty_cache()
+    return row
 
 
 def _stem_grads(kind, x, w, scale, bias, dp, fn):
@@ -1235,6 +1295,7 @@ def _counters():
             "stem_pool_q_2d": stem.stem_pool_q_2d,
             "stem_pool_q_3d": stem.stem_pool_q_3d,
             "int8_conv2d": int8.conv2d_int8,
+            "int8_conv3d": int8.conv3d_int8,
             "flash_attention": flash.flash_attention}
 
 
@@ -3020,13 +3081,16 @@ def _pnr_build(name, kw, calibration):
     return model, kw
 
 
-def _busy_share(forward):
+def _busy_share(forward, int8=False):
     """One forward traced by ``torch.profiler``: (device busy share of its
-    wall time, device ms by kernel class)."""
+    wall time, device ms by kernel class; ``int8``: the int8 conv's
+    quantize and copies apart)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from egot2x_torch.tools.profile_flagship import device_breakdown
+    from egot2x_torch.tools.profile_flagship import (_category,
+                                                     device_breakdown,
+                                                     int8_category)
 
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
                                               ProfilerActivity.CUDA]) as prof:
@@ -3034,7 +3098,8 @@ def _busy_share(forward):
         forward()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
-    row = device_breakdown(prof, 1, traced_ms)
+    row = device_breakdown(prof, 1, traced_ms,
+                           int8_category if int8 else _category)
     return row["device_busy_share"], row["by_category"]
 
 
@@ -3202,11 +3267,12 @@ def _first_clip(feed):
     return tuple(cut(x) for x in feed)
 
 
-def _serve_hoi(model, feeds, forward):
+def _serve_hoi(model, feeds, forward, **per_forward):
     """The served path of one HOI model: every launch count set to 0 just
     before, a warm-up, ``HOI_TS_REPEATS`` timed forwards of the f32 feed,
-    one of the uint8 feed; the counts read just after. Returns (f32
-    output, uint8 output, ms a batch, peak GiB, counts)."""
+    one of the uint8 feed; the counts read just after, each ``per_forward``
+    launches a forward (0 unless given). Returns (f32 output, uint8
+    output, ms a batch, peak GiB, counts)."""
     import torch
 
     for fn in _counters().values():
@@ -3224,9 +3290,9 @@ def _serve_hoi(model, feeds, forward):
         u8 = forward(model, feeds["u8"])
         torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in _counters().items()}
-    expect = _expected(HOI_TS_REPEATS + 2)
+    expect = _expected(HOI_TS_REPEATS + 2, **per_forward)
     if counts != expect:
-        fail(f"hoi_ts {type(model).__name__}: launches {counts}, expected "
+        fail(f"{type(model).__name__}: launches {counts}, expected "
              f"{expect}")
     return out, u8, ms, peak, counts
 
@@ -3356,6 +3422,126 @@ def hoi_ts_phase(card):
     return total
 
 
+def hoi_int8_phase(card):
+    """HOI Stage II with int8 trunks: ts_pnr and ts_oscc at hoi_ts's
+    geometry, seeded weights and precise-BN-fitted stem BNs (fitted on the
+    float model, before calibration), ``quant=True``, calibrated by
+    ``nn/quant.py::calibrate`` on a batch of their own
+    (``HOI_INT8_CALIBRATION``) and checked by ``assert_calibrated``; bf16
+    (tools/bench_hoi.py's default), then f32 with TF32 off. Each served
+    through ``_serve_hoi`` with ``int8_conv3d`` launching once a
+    ``QuantConv3d`` a forward (the count read from the model) and every
+    other kernel of the port 0 times. Checks: finite logits of the
+    expected shape; int8 against the float model of the same dtype and
+    weights on the same batch at cosine > INT8_VS_FLOAT_COSINE (argmax
+    agreement printed); clip 0 against the port's CPU forward (the plain
+    float64 int8 conv; timed) at cosine > INT8_CARD_CPU_COSINE; the uint8
+    feed within INT8_LOGIT_TOL of the f32 one. Prints ms a batch,
+    clips/s, peak memory, the busy share of one traced forward and its
+    device ms by class (the int8 matmul, the quantizer, the im2col and
+    cast copies apart). Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from egot2x_torch.core.registry import build_model
+    from egot2x_torch.nn.quant import (QuantConv3d, assert_calibrated,
+                                       calibrate)
+    from egot2x_torch.train.precise_bn import compute_precise_bn_stats
+
+    torch.backends.cudnn.allow_tf32 = False   # as main() sets, if alone
+    torch.backends.cuda.matmul.allow_tf32 = False
+    total = {k: 0 for k in _counters()}
+    slow = HOI_TS_FAST // HOI_TS_ALPHA
+    u8, f32 = _hoi_ts_inputs(slow, SEED + 50)           # hoi_ts's batch
+    bn_batch, _ = _hoi_ts_inputs(slow, SEED + 51)       # its BN fit
+    int8_cal, _ = _hoi_ts_inputs(slow, HOI_INT8_CALIBRATION)
+    feeds = {"f32": f32, "u8": u8}
+    translate = lambda model, feed: model(*feed)
+    geometry = dict(crop_size=PNR_CROP, alpha=HOI_TS_ALPHA, beta_inv=8)
+    name = "TaskFusionMFTransformer3TaskDropout"
+    for i, (label, widths) in enumerate(HOI_TS_MODELS.items()):
+        kw = dict(geometry, **widths)
+        model = _seeded(name, seed=SEED + 52 + i, **kw)
+        compute_precise_bn_stats(model, [bn_batch], 1, bns=[
+            model.pnr_model.trunk.s1.bn, model.oscc_model.trunk.s1.bn])
+        state = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            ref = build_model(name, dtype=dt, **kw)
+            ref.load_state_dict(state)
+            with torch.no_grad():
+                float_logits = ref(*f32).float()
+            del ref
+            model = build_model(name, quant=True, dtype=dt, **kw)
+            missing, unexpected = model.load_state_dict(state, strict=False)
+            if unexpected or not all(k.endswith("act_max") for k in missing):
+                fail(f"hoi_int8 {label}: state keys {missing} {unexpected}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calibrate(model, *int8_cal)
+            torch.cuda.synchronize()
+            calibrate_s = time.perf_counter() - t0
+            assert_calibrated(model)
+            convs = sum(isinstance(m, QuantConv3d) for m in model.modules())
+            out, out_u8, ms, peak, counts = _serve_hoi(
+                model, feeds, translate, int8_conv3d=convs)
+            for k in total:
+                total[k] += counts[k]
+            busy, by_category = _busy_share(lambda: model(*f32), int8=True)
+            n_out = 16 if widths["target"] == "keyframe" else 2
+            _check_finite(f"hoi_int8 {label} {dtype}",
+                          {"logits": out, "logits_u8": out_u8},
+                          (HOI_TS_CLIPS, n_out))
+            logits = out.float()
+            vs_float = _cosine(logits, float_logits)
+            argmax_agree = float((logits.argmax(-1) == float_logits.argmax(
+                -1)).float().mean())
+            scale = 1.0 + float(logits.abs().max())
+            feed_err = float((out_u8.float() - logits).abs().max())
+            cpu = _cpu_twin(name, model, quant=True, dtype=dt, **kw)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                want = cpu(*_first_clip(f32))[0].float()
+            cpu_s = time.perf_counter() - t0
+            del cpu
+            got = logits[0].cpu()
+            cpu_cos = _cosine(got, want)
+            cpu_err = float((got - want).abs().max())
+            phase("hoi_int8", card=card, model=name, config=label,
+                  quant=True, dtype=dtype, **widths,
+                  tokens=2 * PNR_FRAMES + slow + 8, clips=HOI_TS_CLIPS,
+                  frames=PNR_FRAMES, crop=PNR_CROP,
+                  pathways=[slow, HOI_TS_FAST], pathway_img=HOI_TS_IMG,
+                  alpha=HOI_TS_ALPHA, feed="f32: raw [0, 255] frames, "
+                  "normalised pathways", ms_per_batch=ms,
+                  clips_per_s=HOI_TS_CLIPS * 1e3 / ms, peak_mem_gib=peak,
+                  calibrate_s=calibrate_s, device_busy_share=busy,
+                  device_ms_by_category=by_category, quant_convs=convs,
+                  launches=counts, cosine_vs_float=vs_float,
+                  argmax_agreement_vs_float=argmax_agree,
+                  cosine_cpu=cpu_cos, max_abs_err_cpu=cpu_err,
+                  cpu_seconds=cpu_s, max_abs_err_u8_vs_f32_feed=feed_err,
+                  bars=dict(vs_float=INT8_VS_FLOAT_COSINE,
+                            cpu=INT8_CARD_CPU_COSINE,
+                            feed=INT8_LOGIT_TOL),
+                  clip0_card=got.tolist(), clip0_cpu=want.tolist())
+            if not vs_float > INT8_VS_FLOAT_COSINE:
+                fail(f"hoi_int8 {label} {dtype}: int8 vs float cosine "
+                     f"{vs_float}")
+            if not (np.isfinite(cpu_err) and cpu_cos > INT8_CARD_CPU_COSINE):
+                fail(f"hoi_int8 {label} {dtype}: card vs CPU cosine "
+                     f"{cpu_cos}")
+            if not feed_err <= INT8_LOGIT_TOL * scale:
+                fail(f"hoi_int8 {label} {dtype}: uint8 feed differs from "
+                     f"the f32 one by {feed_err}")
+            del model, out, out_u8
+            torch.cuda.empty_cache()
+    if total["int8_conv3d"] == 0:
+        fail("hoi_int8: the int8 3D conv was never launched on the path")
+    return total
+
+
 def _line_row(name, row, counts, replaces, route="cuda",
               source="egot2x_torch/csrc/stem_pool.cu"):
     return dict(name=name, route=route, source=source, replaces=replaces,
@@ -3385,7 +3571,7 @@ def main():
     nvjpeg_phase()
     kernels = {**kernel_phase(), **kernel_q_phase()}
     bwd_rows = stem_bwd_phase()
-    conv = int8_conv_phase()
+    conv, conv3d = int8_conv_phase()
     flash_rows = flash_phase()
     requests = list(_requests())
     float_counts, float_logits = slice_phase(card, requests)
@@ -3414,6 +3600,7 @@ def main():
     baseline_counts = ttm_baselines_phase(card, next(_requests()))
     hoi_counts, pnr_rows = hoi_phase(card)
     hoi_ts_counts = hoi_ts_phase(card)
+    hoi_int8_counts = hoi_int8_phase(card)
     float_stem, int8_stem = ("egot2x/ops/pallas_stem.py:251",
                              "egot2x/ops/pallas_stem.py:373")
     # each kernel at its main path's input type: f32 (float slice), bf16
@@ -3426,6 +3613,10 @@ def main():
     line.append(_line_row(
         "int8_conv2d", conv, int8_counts,
         "none: no TPU kernel (XLA int8 conv, egot2x/nn/quant.py:102)",
+        route="library (torch._int_mm)", source="egot2x_torch/ops/int8.py"))
+    line.append(_line_row(
+        "int8_conv3d", conv3d, hoi_int8_counts,
+        "none: no TPU kernel (XLA int8 conv, egot2x/nn/quant.py:154)",
         route="library (torch._int_mm)", source="egot2x_torch/ops/int8.py"))
     line.append(_flash_line_row(flash_rows, asd_counts))
     # the stem's backward: its main path is nofreeze training (f32)
@@ -3461,6 +3652,7 @@ def main():
         row["ttm_baselines_launches"] = baseline_counts[row["name"]]
         row["hoi_launches"] = hoi_counts[row["name"]]
         row["hoi_ts_launches"] = hoi_ts_counts[row["name"]]
+        row["hoi_int8_launches"] = hoi_int8_counts[row["name"]]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 ``from_jax_variables(model, {"params": ..., "batch_stats": ...})`` turns
 an ``egot2x`` variable tree (numpy leaves) into a ``state_dict`` for the
 port module that mirrors it; ``to_jax_variables`` goes back. A quant model
-also carries the ``quant`` collection: ``act_max`` of each int8 conv,
+also carries the ``quant`` collection: ``act_max`` of each int8 conv (2D,
+and 3D at the JAX scope, e.g. ``pnr_model/trunk/s3/block0/branch2/b``),
 ``stem_act_max`` of each stem and ``out_act_max`` of each block or AVSR
 layer that emits int8, as scalar buffers of the module that owns them.
 The layouts differ as follows:

@@ -63,7 +63,9 @@ def build_model(name: str, device=None, **kwargs) -> torch.nn.Module:
     weights in ``torch.channels_last`` (the layout the stem kernel's NHWC
     output feeds). ``kwargs`` go to the model: widths, ``dtype`` (the
     compute dtype; parameters stay f32) and, for the 3-task translator,
-    ``quant`` and ``fuse_stems``; the EgoT2-g prompt models take
+    ``quant`` and ``fuse_stems``; ``quant`` also for the int8 HOI trunks
+    of ``KeyframeLocalizationResNet``, ``StateChangeClsResNet`` and
+    ``TaskFusionMFTransformer3TaskDropout``; the EgoT2-g prompt models take
     ``vocab_size``; the PNR/OSCC models ``arch``, ``crop_size``,
     ``nonlocal_cfg`` (``nn/resnet3d.py::resolve_nonlocal``); the HOI
     translators (``translate/egot2s_hoi.py``) ``target``,

@@ -15,8 +15,8 @@ As in the JAX package, ``MultiTaskSlowFast`` passes ``depth`` but not
 with a temporal kernel, not the reference config's 23. Inputs are
 ``[slow (B, T / alpha, H, W, 3), fast (B, T, H, W, 3)]`` NTHWC frames,
 uint8 (normalised in the stems) or float (taken as they are). The AR/LTA
-aggregators and decoder are not ported yet; the int8 trunk neither:
-``quant=True`` raises.
+aggregators and decoder are not ported yet. Neither model takes ``quant``:
+the JAX classes have no such field, so their trunks run float.
 """
 
 from __future__ import annotations
@@ -39,10 +39,10 @@ def head_dim(beta_inv: int) -> int:
 class MultiTaskSlowFast(nn.Module):
     def __init__(self, num_classes: Sequence[int] = (115, 478),
                  alpha: int = 8, beta_inv: int = 8, depth: int = 50,
-                 quant: bool = False, dtype=torch.float32):
+                 dtype=torch.float32):
         super().__init__()
         self.trunk = SlowFast(depth=depth, alpha=alpha, beta_inv=beta_inv,
-                              quant=quant, dtype=dtype)
+                              dtype=dtype)
         self.head = MultiTaskHead(head_dim(beta_inv), num_classes)
 
     def forward(self, pathways, middle: bool = False):
@@ -53,11 +53,9 @@ class MultiTaskSlowFast(nn.Module):
 @MODEL_REGISTRY.register(name="SlowFastFeature")
 class SlowFastFeature(nn.Module):
     def __init__(self, feature_dim: int = 2048, alpha: int = 8,
-                 beta_inv: int = 8, quant: bool = False,
-                 dtype=torch.float32):
+                 beta_inv: int = 8, dtype=torch.float32):
         super().__init__()
-        self.trunk = SlowFast(alpha=alpha, beta_inv=beta_inv, quant=quant,
-                              dtype=dtype)
+        self.trunk = SlowFast(alpha=alpha, beta_inv=beta_inv, dtype=dtype)
         self.head = MultiTaskHead(head_dim(beta_inv), (feature_dim,))
 
     def forward(self, pathways, middle: bool = False):

@@ -25,8 +25,11 @@ takes float frames as they are and ImageNet-normalises uint8 ones
 runs through the stem kernel (``ops/stem.py::stem_pool_2d``): one launch
 a forward covers all B T frames. The heads' spatial pool is crop_size //
 32 (7 at 225). Parameter names are the JAX package's (``trunk``,
-``head``; ``backbone``, ``lstm``, ``regressor``). The int8 trunks are not
-ported: ``quant=True`` raises on the models that take it.
+``head``; ``backbone``, ``lstm``, ``regressor``). ``quant=True`` gives
+``KeyframeLocalizationResNet`` and ``StateChangeClsResNet`` the int8 trunk
+(``nn/resnet3d.py``; calibrate it with ``nn/quant.py::calibrate``);
+``DualHeadResNet`` and ``KeyframeCnnLSTM`` take no ``quant``, as their JAX
+classes have none.
 """
 
 from __future__ import annotations

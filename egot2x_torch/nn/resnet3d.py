@@ -35,9 +35,14 @@ library's conv, BN, ReLU and pool, as the JAX package runs it in XLA: the
 stem kernel (``ops/stem.py``) takes the 7x7 2D and TalkNet's 1-channel
 5x7x7 stems only. The Nonlocal's affinity is a batched ``torch.matmul``,
 as the JAX package's is an einsum outside any Pallas kernel. ``remat``
-is accepted and changes nothing: these models run inference only. The int8
-trunks (``quant``, the JAX package's ``QuantConv3D``) are not ported yet:
-``quant=True`` raises.
+is accepted and changes nothing: these models run inference only.
+
+``quant=True`` is the JAX package's int8 static-PTQ trunk: the stage convs
+(each bottleneck's ``a``, ``b`` and ``c`` and each ``branch1``) are
+``nn/quant.py::QuantConv3d``; the video stem, the Nonlocals and the heads
+stay float, as in the JAX package. Such a trunk needs
+``nn/quant.py::calibrate`` (or calibrated scales in what it loads), and an
+uncalibrated forward raises.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from torch import nn
 
 from egot2x_torch.nn.common import Dropout
 from egot2x_torch.nn.layers import BatchNorm3d, Conv3d, Linear
+from egot2x_torch.nn.quant import ChecksCalibration, QuantConv3d
 
 MODEL_STAGE_DEPTH = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
@@ -77,15 +83,17 @@ POOL1 = {
     "slow_layer5": (1, 1, 1),
 }
 
-QUANT_NOT_PORTED = ("quant=True: the int8 3D trunks (the JAX package's "
-                    "QuantConv3D, egot2x/nn/quant.py:111) are not ported yet "
-                    "(ROADMAP.md §1, the int8 HOI slice)")
-
-
 class _Conv(Conv3d):
     """A trunk conv: ``build_model`` keeps its weight channels-last."""
 
     channels_last = True
+
+
+def _stage_conv(quant: bool, *args, **kwargs) -> nn.Module:
+    """A bias-free stage conv, int8 (``QuantConv3d``) when ``quant``."""
+    if quant:
+        return QuantConv3d(*args, **kwargs)
+    return _Conv(*args, bias=False, **kwargs)
 
 
 def _bn(channels: int) -> BatchNorm3d:
@@ -166,16 +174,18 @@ class BottleneckTransform(nn.Module):
     after the first two."""
 
     def __init__(self, dim_in: int, dim_out: int, dim_inner: int,
-                 temp_kernel: int, stride: int, dilation: int = 1):
+                 temp_kernel: int, stride: int, dilation: int = 1,
+                 quant: bool = False):
         super().__init__()
         t, d = temp_kernel, dilation
-        self.a = _Conv(dim_in, dim_inner, (t, 1, 1), padding=(t // 2, 0, 0),
-                       bias=False)
+        self.a = _stage_conv(quant, dim_in, dim_inner, (t, 1, 1),
+                             padding=(t // 2, 0, 0))
         self.a_bn = _bn(dim_inner)
-        self.b = _Conv(dim_inner, dim_inner, (1, 3, 3), (1, stride, stride),
-                       padding=(0, d, d), dilation=(1, d, d), bias=False)
+        self.b = _stage_conv(quant, dim_inner, dim_inner, (1, 3, 3),
+                             (1, stride, stride), padding=(0, d, d),
+                             dilation=(1, d, d))
         self.b_bn = _bn(dim_inner)
-        self.c = _Conv(dim_inner, dim_out, 1, bias=False)
+        self.c = _stage_conv(quant, dim_inner, dim_out, 1)
         self.c_bn = _bn(dim_out)
 
     def forward(self, x):
@@ -186,15 +196,17 @@ class BottleneckTransform(nn.Module):
 
 class ResBlock(nn.Module):
     def __init__(self, dim_in: int, dim_out: int, dim_inner: int,
-                 temp_kernel: int, stride: int, dilation: int = 1):
+                 temp_kernel: int, stride: int, dilation: int = 1,
+                 quant: bool = False):
         super().__init__()
         self.branch1 = self.branch1_bn = None
         if dim_in != dim_out or stride > 1:
-            self.branch1 = _Conv(dim_in, dim_out, 1, (1, stride, stride),
-                                 bias=False)
+            self.branch1 = _stage_conv(quant, dim_in, dim_out, 1,
+                                       (1, stride, stride))
             self.branch1_bn = _bn(dim_out)
         self.branch2 = BottleneckTransform(dim_in, dim_out, dim_inner,
-                                           temp_kernel, stride, dilation)
+                                           temp_kernel, stride, dilation,
+                                           quant)
 
     def forward(self, x):
         shortcut = x if self.branch1 is None else self.branch1_bn(
@@ -211,7 +223,8 @@ class ResStage(nn.Module):
                  num_block_temp_kernel: int, stride: int, dilation: int = 1,
                  nonlocal_inds: Sequence[int] = (), nonlocal_group: int = 1,
                  nonlocal_pool: Any = None,
-                 nonlocal_instantiation: str = "dot_product"):
+                 nonlocal_instantiation: str = "dot_product",
+                 quant: bool = False):
         super().__init__()
         pattern = (list(temp_kernel_sizes)
                    * (num_blocks // len(temp_kernel_sizes) + 1))
@@ -222,7 +235,7 @@ class ResStage(nn.Module):
             tk = pattern[i] if i < num_block_temp_kernel else 1
             setattr(self, f"block{i}", ResBlock(
                 dim_in if i == 0 else dim_out, dim_out, dim_inner, tk,
-                stride if i == 0 else 1, dilation))
+                stride if i == 0 else 1, dilation, quant))
             if i in self.nonlocal_inds:
                 setattr(self, f"nonlocal{i}", Nonlocal(
                     dim_out, dim_out // 2, nonlocal_pool,
@@ -269,7 +282,7 @@ class VideoStem(nn.Module):
         return F.max_pool3d(y, (1, 3, 3), (1, 2, 2), (0, 1, 1))
 
 
-class ResNet3D(nn.Module):
+class ResNet3D(ChecksCalibration, nn.Module):
     """Single-pathway trunk: (B, T, H, W, C) NTHWC frames ->
     (B, 32 width_per_group, T', H', W') NCTHW (channels_last_3d)."""
 
@@ -280,8 +293,6 @@ class ResNet3D(nn.Module):
                  input_norm=(0.45, 0.225), nonlocal_cfg=None,
                  quant: bool = False, dtype=torch.float32):
         super().__init__()
-        if quant:
-            raise NotImplementedError(QUANT_NOT_PORTED)
         depths = MODEL_STAGE_DEPTH[depth]
         w = width_per_group
         dim_inner = num_groups * w
@@ -295,9 +306,13 @@ class ResNet3D(nn.Module):
                 dims[i], dims[i + 1], dim_inner * 2 ** i, depths[i],
                 tk[i + 1], num_block_temp_kernel[i], spatial_strides[i],
                 nonlocal_inds=nl[0][i], nonlocal_group=nl[1][i],
-                nonlocal_pool=nl[2][i], nonlocal_instantiation=nl[3]))
+                nonlocal_pool=nl[2][i], nonlocal_instantiation=nl[3],
+                quant=quant))
+        self.quant, self.calibrating = quant, False
 
     def forward(self, x):
+        if self.quant and not self.calibrating:
+            self.assert_calibrated_once()
         y = self.s1(x)
         for i in range(2, 6):
             y = getattr(self, f"s{i}")(y)
@@ -337,9 +352,11 @@ class KeyframeLocalizationHead(nn.Module):
 
     def forward(self, x, middle: bool = False, temporal_pool: int = 1):
         """``temporal_pool``: the JAX head's field, given here since a full
-        temporal pool's T' is known only from the input."""
+        temporal pool's T' is known only from the input. The pool sums in
+        f32 (the CPU has no bf16 avg_pool3d; CUDA's accumulates in f32
+        too) and gives the input's dtype."""
         k = self.spatial_pool
-        x = F.avg_pool3d(x, (temporal_pool, k, k), 1)
+        x = F.avg_pool3d(x.float(), (temporal_pool, k, k), 1).to(x.dtype)
         b, c, t = x.shape[:3]
         x = self.dropout(x.permute(0, 2, 1, 3, 4).reshape(b, t, -1))
         if middle:

@@ -29,8 +29,10 @@ the stems, ``(x / 255 - 0.45) / 0.225``; float frames are taken as they
 are. The trunk runs NCTHW in ``torch.channels_last_3d`` memory as
 ``ResNet3D`` does, and returns the two res5 maps NCTHW: (B, 2048, T /
 alpha, H / 32, W / 32) and (B, 256, T, H / 32, W / 32). Parameter names
-are the JAX package's, so the weight bridge pairs module paths. The int8
-trunk (``quant``) is not ported: ``quant=True`` raises.
+are the JAX package's, so the weight bridge pairs module paths.
+``quant=True`` makes both pathways' stage convs int8
+(``nn/quant.py::QuantConv3d``, as ``ResNet3D``'s); the stems and the
+lateral convs stay float, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,8 +44,9 @@ from torch import nn
 
 from egot2x_torch.nn.common import Dropout
 from egot2x_torch.nn.layers import Linear
-from egot2x_torch.nn.resnet3d import (MODEL_STAGE_DEPTH, QUANT_NOT_PORTED,
-                                      ResStage, VideoStem, _bn, _Conv)
+from egot2x_torch.nn.quant import ChecksCalibration
+from egot2x_torch.nn.resnet3d import (MODEL_STAGE_DEPTH, ResStage, VideoStem,
+                                      _bn, _Conv)
 
 # conv1 + res2..res5 temporal kernels, [slow, fast] each (the reference's
 # _TEMPORAL_KERNEL_BASIS["slowfast"])
@@ -70,15 +73,13 @@ class FuseFastToSlow(nn.Module):
         return torch.cat([slow, fuse], dim=1), fast
 
 
-class SlowFast(nn.Module):
+class SlowFast(ChecksCalibration, nn.Module):
     """Trunk: ``[slow, fast]`` NTHWC frames -> ``[slow_s5, fast_s5]``
     NCTHW (channels_last_3d)."""
 
     def __init__(self, depth: int = 50, beta_inv: int = 8, alpha: int = 8,
                  quant: bool = False, dtype=torch.float32):
         super().__init__()
-        if quant:
-            raise NotImplementedError(QUANT_NOT_PORTED)
         w, tk = WIDTH, TEMPORAL_KERNELS
         slow_dims = (w, w * 4, w * 8, w * 16, w * 32)
         fast_dims = tuple(d // beta_inv for d in slow_dims)
@@ -98,9 +99,13 @@ class SlowFast(nn.Module):
                      inner // beta_inv, tk[i + 1][1])):
                 setattr(self, f"s{i + 2}_{path}", ResStage(
                     din, dout, dinner, blocks, kernels,
-                    NUM_BLOCK_TEMP_KERNEL[i], SPATIAL_STRIDES[i]))
+                    NUM_BLOCK_TEMP_KERNEL[i], SPATIAL_STRIDES[i],
+                    quant=quant))
+        self.quant, self.calibrating = quant, False
 
     def forward(self, pathways):
+        if self.quant and not self.calibrating:
+            self.assert_calibrated_once()
         slow_in, fast_in = pathways
         slow, fast = self.s1_slow(slow_in), self.s1_fast(fast_in)
         for i in range(1, 5):

@@ -78,8 +78,21 @@ def _category(name: str) -> str:
     return "elementwise and other"
 
 
-def run(forward, tf32: bool):
-    """Profile of ``forward()``, a request, after a warm-up."""
+def int8_category(name: str) -> str:
+    """``_category`` with the int8 conv's glue split out by kernel name:
+    the quantizer's rounding and clamping, and copies (the im2col, and the
+    casts of the int32 accumulator and of the dequantized map)."""
+    n = name.lower()
+    if "round" in n or "clamp" in n:
+        return "int8 quantize (round, clamp)"
+    if "copy" in n:
+        return "copy: im2col, casts"
+    return _category(name)
+
+
+def run(forward, tf32: bool, classes=_category):
+    """Profile of ``forward()``, a request, after a warm-up; its device
+    time by the kernel classes ``classes`` gives."""
     torch.backends.cudnn.allow_tf32 = tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
     with torch.no_grad():
@@ -99,14 +112,16 @@ def run(forward, tf32: bool):
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) / FORWARDS * 1e3
     return dict(tf32=tf32, ms_per_request=wall_ms,
-                **device_breakdown(prof, FORWARDS, traced_ms),
+                **device_breakdown(prof, FORWARDS, traced_ms, classes),
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
-def device_breakdown(prof, n: int, traced_ms: float) -> dict:
+def device_breakdown(prof, n: int, traced_ms: float,
+                     classes=_category) -> dict:
     """Device time of a trace of ``n`` repeats of a request or step whose
     wall time under the profiler was ``traced_ms`` each: the busy time
-    and share, by kernel class, and the top kernels, per repeat."""
+    and share, by kernel class (``classes`` of a kernel's name), and the
+    top kernels, per repeat."""
     kernels, cats = {}, defaultdict(float)
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0)
@@ -114,7 +129,7 @@ def device_breakdown(prof, n: int, traced_ms: float) -> dict:
             continue
         ms = us / 1e3 / n
         kernels[ev.key] = (ms, ev.count // n)
-        cats[_category(ev.key)] += ms
+        cats[classes(ev.key)] += ms
     busy = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     return dict(

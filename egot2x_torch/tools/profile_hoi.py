@@ -20,7 +20,14 @@ the device's busy share, device time by kernel class, the top kernels and
 peak memory, with the card's name and power limit, and the FLOPs of a
 batch counted from the conv and matmul shapes.
 
-    python -m egot2x_torch.tools.profile_hoi [--model NAME ...]
+With ``--quant`` the models that take ``quant`` (the two ResNet3D models
+and ts_pnr) run their int8 trunks instead, calibrated on one batch drawn
+apart from the timed one, f32 (TF32 off) and bf16, channels_last_3d; the
+device time splits the int8 conv's parts into their own classes: the int8
+matmul (``torch._int_mm``), the quantizer's rounding and clamping, and
+copies (the im2col and the casts).
+
+    python -m egot2x_torch.tools.profile_hoi [--model NAME ...] [--quant]
     python -m egot2x_torch.tools.profile_hoi --flops   # the counts only,
                                                        # on the CPU
 """
@@ -38,7 +45,8 @@ import torch
 from egot2x_torch.core import bridge
 from egot2x_torch.core.registry import MODEL_REGISTRY, build_model
 from egot2x_torch.nn import resnet3d
-from egot2x_torch.tools.profile_flagship import run
+from egot2x_torch.nn.quant import assert_calibrated, calibrate
+from egot2x_torch.tools.profile_flagship import int8_category, run
 
 B, T, CROP = 16, 16, 225
 TS_B, TS_FAST, TS_IMG, TS_ALPHA = 8, 32, 224, 4
@@ -62,10 +70,10 @@ def shapes(name):
         (TS_B, t, TS_IMG, TS_IMG, 3) for t in (TS_FAST // TS_ALPHA, TS_FAST)]
 
 
-def inputs(name):
+def inputs(name, seed=0):
     """The model's batch of random inputs on the card (float: raw [0, 255]
     frames; standard-normal pathways, as tools/bench_hoi.py feeds)."""
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     batch, frame_shape, path_shapes = shapes(name)
     frames = torch.from_numpy(rng.integers(
         0, 256, frame_shape, dtype=np.uint8)).cuda().float()
@@ -122,9 +130,12 @@ def main():
     parser.add_argument("--model", action="append",
                         choices=[name for name, _ in MODELS],
                         help="only these models (repeatable; default all)")
+    parser.add_argument("--quant", action="store_true",
+                        help="the int8 trunks, calibrated on one batch")
     args = parser.parse_args()
     models = [(name, kw) for name, kw in MODELS
-              if not args.model or name in args.model]
+              if (not args.model or name in args.model)
+              and not (args.quant and name == "KeyframeCnnLSTM")]
     if args.flops:
         for name, kw in models:
             batch = shapes(name)[0]
@@ -145,10 +156,18 @@ def main():
         settings = [("f32", torch.float32, False), ("f32 tf32", torch.float32,
                                                      True),
                     ("bf16", torch.bfloat16, False)]
+        classes = {}
+        if args.quant:
+            settings = [("int8 f32", torch.float32, False),
+                        ("int8 bf16", torch.bfloat16, False)]
+            classes = dict(classes=int8_category)
         for label, dtype, tf32 in settings:
-            model = build_model(name, dtype=dtype, **kw)
+            model = build_model(name, dtype=dtype, quant=args.quant, **kw)
             bridge.load_jax_variables(model,
                                       bridge.random_jax_variables(model, 0))
+            if args.quant:
+                calibrate(model, *inputs(name, seed=1)[1])
+                assert_calibrated(model)
             layouts = ([("channels_last_3d", contextlib.nullcontext),
                         ("ncdhw", lambda: ncdhw(model))] * 2
                        if label == "f32" and name != "KeyframeCnnLSTM"
@@ -157,7 +176,7 @@ def main():
                 layouts[2], layouts[3] = layouts[3], layouts[2]
             for layout, ctx in layouts:
                 with ctx():
-                    row = run(lambda: model(*x), tf32)
+                    row = run(lambda: model(*x), tf32, **classes)
                 print(json.dumps(dict(
                     card=card, model=name, setting=label, layout=layout,
                     clips=batch, frames=T, crop=CROP,

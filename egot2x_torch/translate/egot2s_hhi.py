@@ -72,7 +72,7 @@ from egot2x_torch.nn.common import (PositionalEncoding, TransformerEncoder,
                                     layer_norm)
 from egot2x_torch.nn.fused_stem import fused_rgb_stem
 from egot2x_torch.nn.layers import Linear
-from egot2x_torch.nn.quant import assert_calibrated, scale_buffers
+from egot2x_torch.nn.quant import ChecksCalibration
 from egot2x_torch.nn.resnet2d import normalize_u8_frames
 from egot2x_torch.nn.talknet import FrozenTalkNet
 
@@ -161,7 +161,7 @@ class TaskFusionMFTransformer2Task(_MFTransformerCore):
 
 
 @MODEL_REGISTRY.register(name="TaskFusionMFTransformer3Task")
-class TaskFusionMFTransformer3Task(_MFTransformerCore):
+class TaskFusionMFTransformer3Task(ChecksCalibration, _MFTransformerCore):
     """LAM + TTM + ASD token fusion -> TTM logits (the flagship)."""
 
     def __init__(self, hidden_dim: int = 256, num_heads: int = 4,
@@ -177,7 +177,6 @@ class TaskFusionMFTransformer3Task(_MFTransformerCore):
         self.asd_model = FrozenTalkNet(quant, dtype)
         self.quant, self.fuse_stems = quant, fuse_stems
         self.calibrating = False
-        self._checked_scales = None
 
     def forward(self, video, video_asd, audio, audio_asd):
         """video (B, T, H, W, 3) RGB, f32 normalized or uint8; video_asd
@@ -185,7 +184,7 @@ class TaskFusionMFTransformer3Task(_MFTransformerCore):
         raw wave (unused on this path); audio_asd (B, 4T, 13) MFCC."""
         int8 = self.quant and not self.calibrating
         if int8:
-            self._assert_calibrated()
+            self.assert_calibrated_once()
         video = normalize_u8_frames(video, self.compute_dtype)  # once
         asd = self._trunk(self.asd_model, audio_asd, video_asd)[0]
         stem_lam = stem_ttm = None
@@ -199,16 +198,6 @@ class TaskFusionMFTransformer3Task(_MFTransformerCore):
                   "lam": self._trunk(self.lam_model, video, stem_lam),
                   "asd": asd}
         return self.fuse(tokens)
-
-    def _assert_calibrated(self):
-        """``assert_calibrated`` once for each state of the scales: the
-        check reads every scale on the host, so it reruns only after a
-        scale was written or moved."""
-        bufs = [b for _, b in scale_buffers(self)]
-        key = [(b.data_ptr(), b._version) for b in bufs]
-        if key != self._checked_scales:
-            assert_calibrated(self)
-            self._checked_scales = key
 
 
 @MODEL_REGISTRY.register(name="TaskFusionMFTransformer3TaskASD")

@@ -56,8 +56,16 @@ ported.
 adds the f32 ``pe`` to a bf16 LayerNorm output, jnp promotes the sum to
 f32, and so does torch here: the encoder then computes in the dtype (its
 first residual sum in f32), and the simple_vit encoder's residual stream
-stays f32 under bf16 blocks, as in the JAX package. The int8 trunks are not
-ported: ``quant=True`` raises.
+stays f32 under bf16 blocks, as in the JAX package.
+
+``quant=True`` gives the three frozen trunks their int8 stage convs
+(``nn/resnet3d.py``, ``nn/slowfast.py``) on the one model the JAX package
+can calibrate, ``TaskFusionMFTransformer3TaskDropout`` (its ``__call__``
+alone takes ``calibrate``, which ``calibrate_variables`` passes): build it,
+load the weights, ``nn/quant.py::calibrate(model, frames, pathways)``, then
+``assert_calibrated``. The others raise on ``quant=True``: their JAX
+``__call__`` takes no ``calibrate``, so no int8 trunk of theirs can be
+calibrated.
 """
 
 from __future__ import annotations
@@ -73,7 +81,6 @@ from egot2x_torch.models.pnr import (TRUNK_CHANNELS,
                                      StateChangeClsResNet)
 from egot2x_torch.nn.common import Dropout, TransformerEncoder, layer_norm
 from egot2x_torch.nn.layers import Linear
-from egot2x_torch.nn.resnet3d import QUANT_NOT_PORTED
 from egot2x_torch.nn.simple_vit import SimpleViTEncoder
 from egot2x_torch.nn.slowfast import MultiTaskHead, SlowFast
 
@@ -104,16 +111,24 @@ def _token_trunk(model: nn.Module) -> nn.Module:
 
 
 class _HOIStreamMixin(nn.Module):
-    """The frozen trunks' token streams, shared by the HOI translators."""
+    """The frozen trunks' token streams, shared by the HOI translators.
+    ``calibratable``: the JAX model's ``__call__`` takes ``calibrate``, so
+    its int8 trunks (``quant``) can be calibrated."""
+
+    calibratable = False
 
     def __init__(self, crop_size: int = 225, alpha: int = 8,
                  beta_inv: int = 8, quant: bool = False,
                  dtype=torch.float32):
         super().__init__()
-        if quant:
-            raise NotImplementedError(QUANT_NOT_PORTED)
+        if quant and not self.calibratable:
+            raise ValueError(
+                f"{type(self).__name__}: no int8 path. Its JAX __call__ "
+                "takes no calibrate, so the JAX package's "
+                "calibrate_variables cannot calibrate int8 (QuantConv3D) "
+                "trunks in it")
         self.crop_size, self.alpha, self.beta_inv = crop_size, alpha, beta_inv
-        self.compute_dtype = dtype
+        self.quant, self.compute_dtype = quant, dtype
 
     def train(self, mode: bool = True):
         super().train(mode)
@@ -125,15 +140,17 @@ class _HOIStreamMixin(nn.Module):
 
     def _add_pnr(self):
         self.pnr_model = _token_trunk(KeyframeLocalizationResNet(
-            crop_size=self.crop_size, dtype=self.compute_dtype))
+            crop_size=self.crop_size, quant=self.quant,
+            dtype=self.compute_dtype))
 
     def _add_oscc(self):
         self.oscc_model = _token_trunk(StateChangeClsResNet(
-            crop_size=self.crop_size, no_temp_pool=True,
+            crop_size=self.crop_size, no_temp_pool=True, quant=self.quant,
             dtype=self.compute_dtype))
 
     def _add_action(self):
         self.action_model = SlowFast(alpha=self.alpha, beta_inv=self.beta_inv,
+                                     quant=self.quant,
                                      dtype=self.compute_dtype)
 
     @property
@@ -213,7 +230,10 @@ class TokenFusionCore(nn.Module):
 @MODEL_REGISTRY.register(name="TaskFusionMFTransformer3TaskDropout")
 class TaskFusionMFTransformer3TaskDropout(_HOIStreamMixin):
     """ts_pnr (``target="keyframe"``, D 128, 6 layers) and ts_oscc
-    (``"state"``, D 256, 5 layers): (B, 16) or (B, 2) logits."""
+    (``"state"``, D 256, 5 layers): (B, 16) or (B, 2) logits; int8 trunks
+    with ``quant``."""
+
+    calibratable = True
 
     def __init__(self, target: str = "keyframe", feature_dim: int = 128,
                  num_layers: int = 1, num_heads: int = 8,

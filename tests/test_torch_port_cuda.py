@@ -13,7 +13,9 @@ Stage I: stems in training mode launch no kernel (batch statistics, as
 library ops) and in eval mode one; each Stage-I task's step on the card
 against the CPU. EgoT2-g: masked and causal attention never launch flash,
 the prompt encoder on a 700-frame ASD track's 2100 tokens does (once a
-layer), and the causal decoder on the card against the CPU.
+layer), and the causal decoder on the card against the CPU. The int8 3D
+conv bit for bit against its plain version at the HOI trunks' shapes, and
+an int8 ts_pnr on the card against the CPU.
 
 Marked ``cuda``; each test skips when the process sees no CUDA card. This
 file imports neither JAX nor the JAX package, so on a machine without JAX
@@ -31,7 +33,7 @@ bf16 kernel vs the plain f32 version of the same bf16-rounded inputs,
 rtol = atol = 1e-2 (the kernel rounds its f32 result to bf16 once: 2^-8
 relative). int8 stems: |diff| <= 1 quantum everywhere and >= 99.9% equal
 (the f32 conv sums in another order than cuDNN, so a value within one
-rounding of a half-integer flips). int8 conv: bit for bit. Flash kernel vs
+rounding of a half-integer flips). int8 convs: bit for bit. Flash kernel vs
 its plain version on the same inputs: f32 rtol 1e-4, atol 1e-5 as
 tests/test_pallas_attention.py holds the Pallas kernel; bf16 1e-2.
 """
@@ -1143,3 +1145,78 @@ def test_ttm_baseline_on_card_matches_cpu(cuda, name, launches):
     assert (stem.stem_pool_2d.launches - before[0],
             stem.stem_pool_3d.launches - before[1]) == launches
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape, o, kernel, stride, pad", [
+    ((2, 64, 16, 57, 57), 64, (1, 3, 3), (1, 1, 1), (0, 1, 1)),  # res2 b
+    ((2, 1024, 16, 15, 15), 256, (3, 1, 1), (1, 1, 1), (1, 0, 0)),  # res4 a
+    ((2, 256, 4, 29, 29), 512, (1, 1, 1), (1, 2, 2), (0, 0, 0)),  # branch1
+    ((2, 8, 32, 56, 56), 8, (3, 1, 1), (1, 1, 1), (1, 0, 0)),  # fast a
+    ((2, 12, 4, 9, 9), 20, (1, 3, 3), (1, 2, 2), (0, 1, 1)),  # off 8
+])
+def test_int8_conv3d_matches_plain_bit_for_bit(cuda, shape, o, kernel,
+                                               stride, pad):
+    rng = np.random.default_rng(shape[1] + o)
+    x = torch.from_numpy(rng.integers(-127, 128, shape,
+                                      dtype=np.int8)).to(cuda)
+    x = x.contiguous(memory_format=torch.channels_last_3d)
+    w = torch.from_numpy(rng.integers(-127, 128, (o, shape[1], *kernel),
+                                      dtype=np.int8)).to(cuda)
+    before = int8.conv3d_int8.launches
+    got = int8.conv3d_int8(x, w, stride, pad)
+    assert int8.conv3d_int8.launches == before + 1
+    want = int8.conv3d_int8_plain(x, w, stride, pad)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_ts_pnr_on_card_matches_cpu(cuda, dtype):
+    """ts_pnr with int8 trunks (D 64, 1 layer; 2 clips of 4 raw uint8
+    frames at crop 65, pathways 2 + 8 frames of 64^2, alpha 4), seeded,
+    its stems' BNs fitted, calibrated on the card: one ``int8_conv3d``
+    launch a ``QuantConv3d`` a forward, none of any other kernel; logits
+    against the CPU's (the same scales; the plain f64 conv) at cosine >
+    0.999, the 2D int8 slice's bar (a value at a quantization boundary
+    can land a quantum apart on the two devices)."""
+    from egot2x_torch.core import bridge
+    from egot2x_torch.core.registry import build_model
+    from egot2x_torch.nn.quant import QuantConv3d, calibrate
+    from egot2x_torch.train.precise_bn import compute_precise_bn_stats
+
+    kw = dict(target="keyframe", feature_dim=64, num_layers=1, crop_size=65,
+              alpha=4, pnr_frames=4, action_frames=8, quant=True,
+              dtype=getattr(torch, dtype))
+    rng = np.random.default_rng(4)
+    frames, cal = (torch.from_numpy(rng.integers(
+        0, 256, (2, 4, 65, 65, 3)).astype(np.uint8)) for _ in range(2))
+    paths = [torch.from_numpy(rng.integers(0, 256, (2, t, 64, 64, 3)).astype(
+        np.uint8)) for t in (2, 8)]
+    cpu = build_model("TaskFusionMFTransformer3TaskDropout", device="cpu",
+                      **kw)
+    bridge.load_jax_variables(cpu, bridge.random_jax_variables(cpu, 5))
+    for trunk in (cpu.pnr_model.trunk, cpu.oscc_model.trunk):
+        compute_precise_bn_stats(trunk.s1, [(cal,)], 1, bns=[trunk.s1.bn])
+    card = build_model("TaskFusionMFTransformer3TaskDropout", device=cuda,
+                       **kw)
+    card.load_state_dict(cpu.state_dict())
+    feed = (frames.to(cuda), [p.to(cuda) for p in paths])
+    calibrate(card, *feed)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    convs = sum(isinstance(m, QuantConv3d) for m in card.modules())
+    before = {k: f.launches for k, f in (
+        ("conv3d", int8.conv3d_int8), ("conv2d", int8.conv2d_int8),
+        ("stem2d", stem.stem_pool_2d), ("stem3d", stem.stem_pool_3d),
+        ("flash", flash.flash_attention))}
+    with torch.no_grad():
+        got = card(*feed).float().cpu()
+        want = cpu(frames, paths).float()
+    after = {k: f.launches for k, f in (
+        ("conv3d", int8.conv3d_int8), ("conv2d", int8.conv2d_int8),
+        ("stem2d", stem.stem_pool_2d), ("stem3d", stem.stem_pool_3d),
+        ("flash", flash.flash_attention))}
+    assert convs == 208
+    assert {k: after[k] - before[k] for k in after} == dict(
+        conv3d=convs, conv2d=0, stem2d=0, stem3d=0, flash=0)
+    assert got.shape == (2, 16) and torch.isfinite(got).all()
+    g, w = got.double().flatten(), want.double().flatten()
+    assert float(g @ w / (g.norm() * w.norm())) > 0.999

@@ -28,8 +28,8 @@ Tolerances: logits max |delta| <= 1e-4 (1 + |logit|); tokens within 1e-5
 of their norm per token. In bf16 (``tools/bench_hoi.py``'s QUANT=0
 dtype), fed the recorded trunk outputs cast to bf16, each model's logits
 are held within ``BF16_TOL`` and the dtype each LayerNorm takes and each
-projection computes in, exactly. ``quant=True`` raises by name on every
-model.
+projection computes in, exactly. ``quant=True``: ts_pnr's uncalibrated
+int8 forward and every other model raise by name.
 """
 
 import contextlib
@@ -48,6 +48,7 @@ from egot2x_torch.core import bridge  # noqa: E402
 from egot2x_torch.core.registry import (MODEL_REGISTRY,  # noqa: E402
                                         build_model, place)
 from egot2x_torch.nn.common import MultiHeadAttention  # noqa: E402
+from egot2x_torch.nn.quant import QuantConv3d  # noqa: E402
 from egot2x_torch.train.precise_bn import (  # noqa: E402
     compute_precise_bn_stats)
 from egot2x_torch.translate import egot2s_hoi  # noqa: E402
@@ -509,5 +510,20 @@ def test_bf16_logits_match_jax(bf16_runs, case):
 
 @pytest.mark.parametrize("name", sorted({v[0] for v in VARIANTS.values()}))
 def test_quant_raises_by_name(name):
-    with pytest.raises(NotImplementedError, match="QuantConv3D"):
-        build_model(name, device="cpu", quant=True)
+    """ts_pnr / ts_oscc's model builds int8 trunks (its JAX ``__call__``
+    takes ``calibrate``; built on the meta device here: its uncalibrated
+    forward's refusal and its int8 path are
+    tests/test_torch_port_quant3d_ts*.py's); every other model raises by
+    name: its JAX ``__call__`` takes no ``calibrate``, so nothing can
+    calibrate its int8 trunks."""
+    cls = MODEL_REGISTRY.get(name)
+    if not cls.calibratable:
+        with pytest.raises(ValueError, match=f"{name}: no int8 path"):
+            build_model(name, device="cpu", quant=True)
+        return
+    with torch.device("meta"):
+        model = cls(quant=True, **GEOMETRY, **SEQUENCE)
+    convs = [m for m in model.modules() if isinstance(m, QuantConv3d)]
+    assert len(convs) == 208 and all(
+        isinstance(getattr(model, t).trunk.s2.block0.branch1, QuantConv3d)
+        for t in ("pnr_model", "oscc_model"))

@@ -18,7 +18,8 @@ once for the outputs of one jit (``trunks_traced_once``).
 Tolerances: logits and scores max |delta| <= 1e-4 (1 + |ref|); the
 8192-d tokens within 1e-4 of their norm per frame (and elementwise at the
 logits' bar). The PNR metrics equal ``egot2x.metrics.pnr``'s on the same
-arrays. ``quant=True`` raises by name.
+arrays. ``quant=True``: the int8 trunk's uncalibrated forward raises by
+name.
 """
 
 import jax
@@ -183,5 +184,13 @@ def test_pnr_metrics_match_jax():
 @pytest.mark.parametrize("name", ["KeyframeLocalizationResNet",
                                   "StateChangeClsResNet"])
 def test_quant_raises_by_name(name):
-    with pytest.raises(NotImplementedError, match="QuantConv3D"):
-        build_model(name, device="cpu", quant=True)
+    """``quant=True`` builds the int8 trunk; its forward raises, naming a
+    scale, until it is calibrated (tests/test_torch_port_quant3d*.py run
+    it). The models whose JAX classes have no ``quant`` take none."""
+    model = build_model(name, device="cpu", quant=True, crop_size=CROP)
+    with pytest.raises(ValueError, match="uncalibrated.*s2.block0"):
+        model(torch.from_numpy(_frames(1)))
+    other = {"KeyframeLocalizationResNet": "DualHeadResNet",
+             "StateChangeClsResNet": "KeyframeCnnLSTM"}[name]
+    with pytest.raises(TypeError, match="quant"):
+        build_model(other, device="cpu", quant=True)

@@ -232,5 +232,10 @@ def test_heads_match_jax(head):
 
 
 def test_quant_raises_by_name():
-    with pytest.raises(NotImplementedError, match="QuantConv3D"):
-        resnet3d.ResNet3D(quant=True)
+    """``quant=True`` builds the int8 trunk (its stage convs
+    ``QuantConv3d``); its forward raises, naming a scale, until it is
+    calibrated (tests/test_torch_port_quant3d_trunks.py runs it)."""
+    model = place(resnet3d.ResNet3D(quant=True, input_norm=None, **ARGS),
+                  "cpu")
+    with pytest.raises(ValueError, match="uncalibrated.*s2.block0"):
+        model(torch.from_numpy(_frames(1)))

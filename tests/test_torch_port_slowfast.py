@@ -243,5 +243,7 @@ def test_head_matches_jax():
 
 @pytest.mark.parametrize("name", ["MultiTaskSlowFast", "SlowFastFeature"])
 def test_quant_raises_by_name(name):
-    with pytest.raises(NotImplementedError, match="QuantConv3D"):
+    """The JAX classes have no ``quant``, so the port's take none (their
+    trunk, ``SlowFast``, takes it: tests/test_torch_port_quant3d*.py)."""
+    with pytest.raises(TypeError, match="quant"):
         build_model(name, device="cpu", quant=True)
